@@ -1,0 +1,43 @@
+"""Bayesian-network compiler, fused decision path (DESIGN.md SS8-SS10), in torch.
+
+    spec.py        NetworkSpec / Node -- the source language; nodes carry a
+                   cardinality k (binary = the k=2 special case)
+    compile.py     the fused lowering: one net_sweep launch per batch, with
+                   the decision argmax inside the kernel; noise= perturbs
+                   every DAC threshold through the crossbar model
+    noise.py       NoiseModel: plan-build-time device-to-device / read-noise /
+                   IR-drop / stuck-at perturbation of the DAC thresholds
+    reliability.py decision-margin confidence, RetryPolicy, DriftMonitor and
+                   the reliability statistics
+    scenarios.py   5-12 node driving networks over data/detection statistics
+    driver.py      FrameDriver: serve-style batching of evidence frames with
+                   power-of-two buckets, non-blocking dispatch on the CUDA
+                   stream, confidence-gated retry, fault recovery, swap_net
+
+Still to port (ROADMAP queue 1): the enumeration oracle (analytic.py), the
+calibrate-back loop (calibrate.py) and the unfused lowering.
+"""
+
+from repro_torch.bayesnet.compile import (  # noqa: F401
+    CompiledNetwork,
+    compile_network,
+    posterior_argmax,
+    sweep_plan,
+)
+from repro_torch.bayesnet.driver import FrameDriver  # noqa: F401
+from repro_torch.bayesnet.noise import NoiseModel, perturbed_cdf_rows  # noqa: F401
+from repro_torch.bayesnet.reliability import (  # noqa: F401
+    HEALTH_DRIFTING,
+    HEALTH_HEALTHY,
+    HEALTH_RECALIBRATING,
+    HEALTH_STATES,
+    DriftMonitor,
+    DriftPolicy,
+    FrameReport,
+    ReliabilityStats,
+    RetryPolicy,
+    decision_confidence,
+    flip_rate,
+)
+from repro_torch.bayesnet.scenarios import SCENARIOS, by_name  # noqa: F401
+from repro_torch.bayesnet.spec import NetworkSpec, Node  # noqa: F401

@@ -10,3 +10,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 # Make the optional-hypothesis shim (tests/hypcompat.py) importable from any
 # test module regardless of pytest's rootdir/package resolution.
 sys.path.insert(0, os.path.dirname(__file__))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skipped where torch.cuda.is_available() is False",
+    )
