@@ -23,6 +23,26 @@ Phases (any failure makes the script exit non-zero without the result line):
 5. timing  -- CUDA-event times per launch for each kernel and its plain
               version, frames per second of the async drain, single-frame
               ``decide`` latency p50/p99 at n_bits 128 and 4096.
+6. operators -- the paper's fusion operators.  Each of ``sne_encode``,
+              ``pand_popcount``, ``bayes_decide`` and ``fusion_map`` against
+              its plain torch version on the card (bit for bit; fusion_map
+              within atol 2e-6, rtol 1e-5) at M 1..3, K 2 and 16, row counts
+              off the block grid and counter origins that wrap 2**32.  Then
+              the operator path through its entry points, counts reset just
+              before and read just after: the full ``paper-bayes-fusion``
+              batch (M=2, K=16, 8 frames of 1080x1920, 128 bits) through
+              ``fusion_map``, the fused ``bayes_decide`` and the composed
+              ``sne_encode`` -> ``pand_popcount`` -> argmax, which must agree
+              on every pixel, with slices of rows held against the plain
+              versions at their counter origins; the ``bench_latency``
+              decision (4096 decisions, M=K=2, 128 bits: fused, composed,
+              ``bayes_decide_packed``); and the ``obstacle_fusion`` example
+              flow at 64x64.
+7. operator_timing -- CUDA-event times per launch of the four kernels at the
+              full batch and at a 65,536-pixel slice of it, beside their plain
+              versions (slice only: the plain versions do not fit at full
+              size), their bounds, and the composed torch expression for
+              ``fusion_map``.
 
 Before the last line it prints the ``nvidia-smi`` name/power-limit line and a
 ``{"kernels": [...]}`` JSON line; the last line is
@@ -32,6 +52,7 @@ Before the last line it prints the ``nvidia-smi`` name/power-limit line and a
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import pathlib
 import subprocess
@@ -54,10 +75,27 @@ from repro_torch.bayesnet import (  # noqa: E402
     posterior_argmax,
     sweep_plan,
 )
-from repro_torch.core import prng  # noqa: E402
-from repro_torch.kernels import backend  # noqa: E402
+from repro_torch.configs.paper_bayes import full_config  # noqa: E402
+from repro_torch.core import prng, rng  # noqa: E402
+from repro_torch.data import detection  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    backend,
+    bayes_decide,
+    bayes_decide_packed,
+    fusion_map,
+    pand_popcount,
+    sne_encode,
+)
+from repro_torch.kernels.bayes_decide import kernel as bd_kernel  # noqa: E402
+from repro_torch.kernels.bayes_decide.ref import bayes_decide_ref  # noqa: E402
+from repro_torch.kernels.fusion_map import kernel as fm_kernel  # noqa: E402
+from repro_torch.kernels.fusion_map.ref import fusion_map_ref, log_prior  # noqa: E402
 from repro_torch.kernels.net_sweep import kernel as net_sweep_kernel  # noqa: E402
 from repro_torch.kernels.net_sweep import record_program, sweep_tile  # noqa: E402
+from repro_torch.kernels.pand_popcount import kernel as pp_kernel  # noqa: E402
+from repro_torch.kernels.pand_popcount.ref import pand_popcount_ref  # noqa: E402
+from repro_torch.kernels.sne_encode import kernel as sne_kernel  # noqa: E402
+from repro_torch.kernels.sne_encode.ref import sne_encode_ref  # noqa: E402
 from repro_torch.obs import PAPER_BUDGET_MS  # noqa: E402
 
 NAMES = sorted(SCENARIOS)
@@ -67,6 +105,42 @@ KD = (0x9E3779B9, 0x7F4A7C15)
 INT32_LANES_PER_SM = 64               # Hopper SM, per clock (NVIDIA H100 white paper)
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM HBM3 (NVIDIA data sheet)
 TIMED_SCENARIO = "intersection"       # the largest network: the kernels line's numbers
+F32_FLOPS_PER_S = 67e12               # H100 SXM float32 outside the tensor cores (data sheet)
+# The least integer work per entropy word of sne_encode / bayes_decide: two
+# lowbias32 rounds (3 shifts, 3 XORs, 2 multiplies each) and the two key XORs
+# (18), plus one compare per comparator byte (4).  Packing, the AND across
+# modalities and the popcount come on top and are not counted.
+OPS_PER_ENTROPY_WORD = 22
+OP_KEY = np.array([0x2545F497, 0x7F4A7C15], np.uint32)      # seed words of the operator runs
+OP_SLICE = 4096                       # pixels per slice held against the plain versions
+LINE_PIXELS = 65536                   # the kernels line: a slice of the full batch
+LAT_DECISIONS, LAT_BITS = 4096, 128   # bench_latency's decision workload (M = K = 2)
+FM_ATOL, FM_RTOL = 2e-6, 1e-5         # fusion_map: card logf/expf vs torch log/exp
+KERNEL_MODULES = {
+    "net_sweep": net_sweep_kernel, "sne_encode": sne_kernel,
+    "pand_popcount": pp_kernel, "bayes_decide": bd_kernel, "fusion_map": fm_kernel,
+}
+LAUNCHERS = {
+    "net_sweep": net_sweep_kernel.net_sweep_cuda, "sne_encode": sne_kernel.sne_encode_cuda,
+    "pand_popcount": pp_kernel.pand_popcount_cuda, "bayes_decide": bd_kernel.bayes_decide_cuda,
+    "fusion_map": fm_kernel.fusion_map_cuda,
+}
+REPLACES = {
+    "net_sweep": "src/repro/kernels/net_sweep/kernel.py:38",
+    "sne_encode": "src/repro/kernels/sne_encode/kernel.py:23",
+    "pand_popcount": "src/repro/kernels/pand_popcount/kernel.py:18",
+    "bayes_decide": "src/repro/kernels/bayes_decide/kernel.py:27",
+    "fusion_map": "src/repro/kernels/fusion_map/kernel.py:18",
+}
+
+
+def _reset_launches():
+    for fn in LAUNCHERS.values():
+        fn.launches = 0
+
+
+def _launches():
+    return {name: fn.launches for name, fn in LAUNCHERS.items()}
 
 
 def _smi(query: str) -> str:
@@ -98,6 +172,59 @@ def _event_ms(fn, reps, warmup=2):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _entropy(key, shape, n_bits, offset):
+    """The entropy words of ``shape`` streams of ``n_bits`` at a counter origin, on the card."""
+    return rng.counter_hash_words(key, shape, n_bits // 4, offset=offset, device="cuda")
+
+
+def _int_err(got, want):
+    """Max abs difference of two integer tensors (0 when they are equal)."""
+    if tuple(got.shape) != tuple(want.shape):
+        raise AssertionError(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if got.numel() == 0:
+        return 0
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def _float_err(got, want):
+    """Max abs difference; raises if outside fusion_map's stated tolerance."""
+    if not torch.allclose(got, want, atol=FM_ATOL, rtol=FM_RTOL):
+        raise AssertionError(f"fusion_map differs from its plain version beyond atol "
+                             f"{FM_ATOL}, rtol {FM_RTOL}")
+    return float((got - want).abs().max())
+
+
+def _composed(key, p, n_bits, device="cuda"):
+    """The decision in three steps: sne_encode -> pand_popcount -> argmax."""
+    counts = pand_popcount(sne_encode(key, p, n_bits, device=device), device=device)
+    return torch.argmax(counts, dim=-1).to(torch.int32), counts
+
+
+def _class_posteriors(gen, m, r, k):
+    """(M, R, K) peaked per-pixel class posteriors: softmax of N(0, 3^2) logits."""
+    logits = torch.randn((m, r, k), generator=gen, device="cuda").mul_(3.0)
+    return torch.softmax(logits, dim=-1)
+
+
+def _obstacle_flow(device):
+    """examples/obstacle_fusion.py: a 64x64 night scene, analytic fusion of
+    RGB and thermal, and the stochastic decision on 4096 pixels at 256 bits."""
+    cfg = detection.SceneConfig(height=64, width=64, night_fraction=1.0)
+    gt, p_rgb, p_th, _ = detection.make_scene(torch.Generator().manual_seed(0), cfg,
+                                              device=device)
+    p_modal = torch.stack([torch.stack([q, 1 - q], -1).reshape(-1, 2) for q in (p_rgb, p_th)])
+    fused = fusion_map(p_modal, device=device)[:, 0]
+    rates = {name: [float(v) for v in detection.detection_metrics(gt, q.reshape(gt.shape))]
+             for name, q in (("rgb", p_rgb), ("thermal", p_th), ("fused", fused))}
+    dec, cnt = bayes_decide(prng.PRNGKey(1), p_modal[:, :4096], 256, device=device)
+    stoch = cnt[:, 0].to(torch.float32) / cnt.sum(-1).clamp(min=1).to(torch.float32)
+    return {
+        "fused": fused, "dec": dec, "cnt": cnt, "rates": rates,
+        "mean_abs_err": float((stoch - fused[:4096]).abs().mean()),
+        "agreement": float((dec == (fused[:4096] < 0.5).to(torch.int32)).to(torch.float32).mean()),
+    }
 
 
 class Smoke:
@@ -140,12 +267,17 @@ class Smoke:
         }
 
     def build(self):
+        """One nvcc per kernel source, all started together."""
         t0 = time.perf_counter()
-        path, log = backend.build_library(net_sweep_kernel.SOURCE)
-        print(f"built {path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
-        print(log.strip(), flush=True)
-        net_sweep_kernel.library()
-        self.report["build_log"] = log
+        with concurrent.futures.ThreadPoolExecutor(len(KERNEL_MODULES)) as pool:
+            built = dict(zip(KERNEL_MODULES, pool.map(
+                lambda mod: backend.build_library(mod.SOURCE), KERNEL_MODULES.values())))
+        print(f"built {len(built)} kernel libraries in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        for name, (path, log) in built.items():
+            print(f"{path.name}:\n{log.strip()}", flush=True)
+            KERNEL_MODULES[name].library()
+        self.report["build_log"] = {name: log for name, (_, log) in built.items()}
 
     def kernels(self):
         self.max_err = 0
@@ -189,7 +321,7 @@ class Smoke:
             d.submit(frames[n])
             refs[n] = (d.drain(), plain[n].decide(prng.PRNGKey(5), frames[n][:BATCH]))
         torch.cuda.synchronize()
-        net_sweep_kernel.net_sweep_cuda.launches = 0          # the main path starts
+        _reset_launches()                                      # the main path starts
         outs = {}
         for i, n in enumerate(NAMES):
             sync = FrameDriver(nets[n], max_batch=MAX_BATCH, salt=100 + i)
@@ -199,7 +331,8 @@ class Smoke:
             outs[n] = (sync.drain(), asyn.drain_async(),
                        [t.cpu() for t in nets[n].decide(prng.PRNGKey(5), frames[n][:BATCH])])
         torch.cuda.synchronize()
-        self.launches = net_sweep_kernel.net_sweep_cuda.launches   # the main path ends
+        counts = _launches()                                   # the main path ends
+        self.launches = counts["net_sweep"]
         if self.launches <= 0:
             raise AssertionError("the main path launched the net_sweep kernel 0 times")
         for n in NAMES:
@@ -232,7 +365,7 @@ class Smoke:
               f"{DRAIN_FRAMES} frames + one decide of {BATCH}) identical to the plain "
               f"driver; net_sweep launches {self.launches} "
               f"({per_frame:.6f} per drained frame)", flush=True)
-        self.report["main_path"] = {"launches": self.launches,
+        self.report["main_path"] = {"launches": counts,
                                     "launches_per_drained_frame": per_frame}
 
     def timing(self):
@@ -298,6 +431,221 @@ class Smoke:
         self.report["frames_per_s"] = fps
         self.report["decide_latency_ms"] = lat
 
+    # ------------------------------------------------------------ operators
+    def operators(self):
+        self.op_err = {"sne_encode": 0, "pand_popcount": 0, "bayes_decide": 0, "fusion_map": 0.0}
+        self._operator_checks()
+        self._operator_path()
+
+    def _note(self, name, err):
+        self.op_err[name] = max(self.op_err[name], err)
+        if name != "fusion_map" and err:
+            raise AssertionError(f"{name} differs from its plain version: max abs err {err}")
+
+    def _operator_checks(self):
+        """Each kernel against its plain version on the same inputs, on the card."""
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        kd = rng.seed_words(OP_KEY)
+        edge = torch.tensor([0.0, 1.0, 1.5, -0.2, 1 / 512, 3 / 512, 255 / 512, 511 / 512],
+                            device="cuda")
+        # (M, rows off the block grid, K, n_bits, counter origin)
+        cases = [(1, 4099, 2, 128, 0), (2, 4099, 16, 128, 0), (3, 1000, 16, 64, 0),
+                 (2, 257, 2, 256, 2**32 - 1000), (3, 333, 16, 96, 2**32 - 5000)]
+        for m, r, k, n_bits, offset in cases:
+            p = torch.rand((m, r, k), generator=gen, device="cuda")
+            p[:, 1] = 0.0                             # every class ties at count 0
+            p.view(-1)[: edge.numel()] = edge         # clipped values and DAC half steps
+            prior = torch.rand(k, generator=gen, device="cuda") + 0.1
+            prior /= prior.sum()
+            rand = _entropy(OP_KEY, (m, r, k), n_bits, offset)
+            words = sne_kernel.sne_encode_cuda(*kd, p.reshape(-1), n_bits=n_bits, offset=offset)
+            counts = pp_kernel.pand_popcount_cuda(words.view(m, r * k, -1))
+            dec, cnt = bd_kernel.bayes_decide_cuda(*kd, p, n_bits=n_bits, offset=offset)
+            fused = fm_kernel.fusion_map_cuda(p, prior)
+            want_words = sne_encode_ref(p.reshape(-1), rand.view(m * r * k, -1))
+            want_dec, want_cnt = bayes_decide_ref(p, rand)
+            torch.cuda.synchronize()
+            self._note("sne_encode", _int_err(words, want_words))
+            self._note("pand_popcount", _int_err(
+                counts, pand_popcount_ref(words.view(m, r * k, -1))))
+            self._note("bayes_decide", max(_int_err(dec, want_dec), _int_err(cnt, want_cnt)))
+            self._note("fusion_map", _float_err(fused, fusion_map_ref(p, prior)))
+        print(f"operators: {len(cases)} cases (M 1..3, K 2/16, rows off the block grid, "
+              f"counter origins wrapping 2**32) equal to the plain versions: max abs err "
+              f"{self.op_err} (tolerance 0 for the integer kernels; fusion_map atol "
+              f"{FM_ATOL}, rtol {FM_RTOL})", flush=True)
+
+    def _operator_path(self):
+        cfg = full_config()
+        m, k, n_bits = cfg.modalities, cfg.classes, cfg.n_bits
+        r = cfg.frames_per_batch * cfg.height * cfg.width
+        n_rand, w = n_bits // 4, n_bits // 32
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        p = _class_posteriors(gen, m, r, k)
+        p[0, :256, 0] = (2 * torch.arange(256, device="cuda") + 1) / 512   # DAC half steps
+        p[:, 7] = 0.0                                                      # ties at count 0
+        lat_p = torch.rand((2, LAT_DECISIONS, 2), generator=gen, device="cuda")
+        lat_want = bayes_decide(OP_KEY, lat_p.cpu(), LAT_BITS, device="cpu")
+        obstacle_want = _obstacle_flow("cpu")
+        torch.cuda.synchronize()
+        _reset_launches()                                   # the operator path starts
+        t0 = time.perf_counter()
+        fused_map = fusion_map(p)                           # analytic, (R, K)
+        dec, cnt = bayes_decide(OP_KEY, p, n_bits)          # fused, one launch
+        words = sne_encode(OP_KEY, p, n_bits)               # composed: (M, R, K, W) ...
+        counts = pand_popcount(words)                       # ... (R, K) ...
+        dec_c = torch.argmax(counts, dim=-1).to(torch.int32)   # ... and the argmax
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        lat = {"fused": bayes_decide(OP_KEY, lat_p, LAT_BITS),
+               "composed": _composed(OP_KEY, lat_p, LAT_BITS),
+               "packed": bayes_decide_packed(OP_KEY, lat_p, LAT_BITS)}
+        obstacle = _obstacle_flow("cuda")
+        torch.cuda.synchronize()
+        self.op_launches = _launches()                      # the operator path ends
+        for name in ("sne_encode", "pand_popcount", "bayes_decide", "fusion_map"):
+            if self.op_launches[name] <= 0:
+                raise AssertionError(f"the operator path launched {name} 0 times")
+
+        # the full batch: fused == composed on every pixel; output shapes and ranges
+        if not (torch.equal(cnt, counts) and torch.equal(dec, dec_c)):
+            bad = int((cnt != counts).any(-1).sum())
+            raise AssertionError(f"fused bayes_decide differs from the composition on {bad} pixels")
+        if tuple(fused_map.shape) != (r, k) or tuple(dec.shape) != (r,) or \
+                tuple(words.shape) != (m, r, k, w):
+            raise AssertionError("operator outputs have the wrong shapes")
+        row_sum = float((fused_map.sum(-1) - 1).abs().max())
+        if not (bool(torch.isfinite(fused_map).all()) and row_sum < 1e-5):
+            raise AssertionError(f"fusion_map rows are not finite distributions ({row_sum})")
+        if int(cnt.min()) < 0 or int(cnt.max()) > n_bits or int(dec[7]) != 0:
+            raise AssertionError("counts outside [0, n_bits] or a tied row not decided 0")
+        # slices of rows against the plain versions, each at its counter origin
+        starts = (0, r // 2 - OP_SLICE // 2, r - OP_SLICE)
+        prior = torch.full((k,), 1.0 / k, device="cuda")
+        for a in starts:
+            rows = slice(a, a + OP_SLICE)
+            ps = p[:, rows].contiguous()
+            rand = torch.stack([_entropy(OP_KEY, (OP_SLICE, k), n_bits, (mi * r + a) * k * n_rand)
+                                for mi in range(m)])
+            want_dec, want_cnt = bayes_decide_ref(ps, rand)
+            self._note("bayes_decide", max(_int_err(dec[rows], want_dec),
+                                           _int_err(cnt[rows], want_cnt)))
+            for mi in range(m):
+                self._note("sne_encode", _int_err(
+                    words[mi, rows].reshape(-1, w),
+                    sne_encode_ref(ps[mi].reshape(-1), rand[mi].reshape(-1, n_rand))))
+            self._note("pand_popcount", _int_err(
+                counts[rows].reshape(-1), pand_popcount_ref(words[:, rows].reshape(m, -1, w))))
+            self._note("fusion_map", _float_err(fused_map[rows], fusion_map_ref(ps, prior)))
+        agree = float((dec == torch.argmax(fused_map, -1).to(torch.int32)).to(torch.float32).mean())
+
+        # bench_latency's decision: fused == composed == packed == the plain version
+        for name, (d, c) in lat.items():
+            if not (torch.equal(d.cpu(), lat_want[0]) and torch.equal(c.cpu(), lat_want[1])):
+                raise AssertionError(f"bench_latency decision: {name} differs from the plain version")
+        # the obstacle example on the card against the same flow on the CPU
+        for key in ("dec", "cnt"):
+            self._note("bayes_decide", _int_err(obstacle[key].cpu(), obstacle_want[key]))
+        self._note("fusion_map", _float_err(obstacle["fused"].cpu(), obstacle_want["fused"]))
+
+        self._op_p = p
+        self.say(f"operator path: paper-bayes-fusion M={m} K={k} {cfg.frames_per_batch}x"
+                 f"{cfg.height}x{cfg.width} ({r} pixels) n_bits={n_bits}: fusion_map, fused "
+                 f"bayes_decide and sne_encode -> pand_popcount -> argmax in {full_s:.3f} s "
+                 f"(first calls); fused == composed on all {r} pixels; slices at pixels "
+                 f"{list(starts)} equal to the plain versions; stochastic decision agrees with "
+                 f"the analytic argmax on {agree * 100:.2f}% of pixels; launches "
+                 f"{self.op_launches}")
+        self.say(f"bench_latency decision ({LAT_DECISIONS} decisions, M=K=2, {LAT_BITS} bits): "
+                 f"fused == composed == bayes_decide_packed == plain version")
+        rates = obstacle["rates"]
+        self.say("obstacle_fusion 64x64 night scene: detection rate / fp rate / confidence "
+                 + "; ".join(f"{n} {v[0] * 100:.1f}% / {v[1] * 100:.2f}% / {v[2]:.2f}"
+                             for n, v in rates.items())
+                 + f"; stochastic (256 bits) vs analytic: mean abs err "
+                 f"{obstacle['mean_abs_err']:.3f}, decision agreement "
+                 f"{obstacle['agreement'] * 100:.1f}%; equal to the CPU flow")
+        self.report["operators"] = {
+            "launches": self.op_launches, "max_abs_err": self.op_err,
+            "full_pixels": r, "full_first_call_s": full_s, "slice_starts": list(starts),
+            "stochastic_vs_analytic_argmax_agreement": agree,
+            "obstacle": {key: obstacle[key] for key in ("rates", "mean_abs_err", "agreement")},
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+
+    def _op_bound(self, name, m, px, k, n_bits):
+        """(bound ms, what sets it, operations, bytes) of one launch."""
+        w = n_bits // 32
+        rate = self.int32_ops_per_s
+        if name == "sne_encode":
+            rows = m * px * k
+            ops, nbytes = rows * (n_bits // 4) * OPS_PER_ENTROPY_WORD, 4 * rows * (1 + w)
+        elif name == "pand_popcount":
+            rows = px * k
+            ops, nbytes = rows * w * (m + 1), 4 * rows * (m * w + 1)   # ANDs, popcount, add
+        elif name == "bayes_decide":
+            ops = m * px * k * (n_bits // 4) * OPS_PER_ENTROPY_WORD
+            nbytes = 4 * (m * px * k + px * k + px)
+        else:   # fusion_map: clip, log, add per input; sub, max, exp, add, divide per output
+            ops, nbytes = 4 * m * px * k + 5 * px * k, 4 * (m * px * k + k + px * k)
+            rate = F32_FLOPS_PER_S
+        op_ms, byte_ms = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes"), ops, nbytes
+
+    def operator_timing(self):
+        cfg = full_config()
+        m, k, n_bits = cfg.modalities, cfg.classes, cfg.n_bits
+        kd = rng.seed_words(OP_KEY)
+        prior = torch.full((k,), 1.0 / k, device="cuda")
+        logprior = log_prior(prior, m)
+        table = {n: {} for n in ("sne_encode", "pand_popcount", "bayes_decide", "fusion_map")}
+        for size, px in (("full", self._op_p.shape[1]), ("line", LINE_PIXELS)):
+            ps = self._op_p if size == "full" else self._op_p[:, :px].contiguous()
+            flat = ps.reshape(-1)
+            words = sne_kernel.sne_encode_cuda(*kd, flat, n_bits=n_bits).view(m, px * k, -1)
+            reps = 5 if size == "full" else 50
+            kernel = {
+                "sne_encode": lambda: sne_kernel.sne_encode_cuda(*kd, flat, n_bits=n_bits),
+                "pand_popcount": lambda: pp_kernel.pand_popcount_cuda(words),
+                "bayes_decide": lambda: bd_kernel.bayes_decide_cuda(*kd, ps, n_bits=n_bits),
+                "fusion_map": lambda: fm_kernel.fusion_map_cuda(ps, prior),
+            }
+            plain = {   # the whole function on the card: entropy drawn, then the plain version
+                "sne_encode": lambda: sne_encode_ref(flat, _entropy(OP_KEY, (flat.numel(),),
+                                                                    n_bits, 0)),
+                "pand_popcount": lambda: pand_popcount_ref(words),
+                "bayes_decide": lambda: bayes_decide_ref(ps, _entropy(OP_KEY, tuple(ps.shape),
+                                                                      n_bits, 0)),
+                "fusion_map": lambda: fusion_map_ref(ps, prior),
+            }
+            for name in table:
+                bound, by, ops, nbytes = self._op_bound(name, m, px, k, n_bits)
+                row = {"pixels": px, "ms": _event_ms(kernel[name], reps), "bound_ms": bound,
+                       "bound_by": by, "ops": ops, "bytes": nbytes,
+                       "plain_ms": _event_ms(plain[name], 3, warmup=1) if size == "line" else None}
+                if name == "fusion_map":
+                    row["composed_ms"] = _event_ms(lambda: torch.softmax(
+                        torch.log(ps.clamp(1e-9, 1.0)).sum(0) - logprior, -1), reps)
+                table[name][size] = row
+                plain_txt = "not measured (does not fit)" if row["plain_ms"] is None \
+                    else f"{row['plain_ms']:.3f} ms"
+                extra = f", composed torch {row['composed_ms']:.4f} ms" if "composed_ms" in row else ""
+                self.say(f"{name} {size} ({px} pixels, M={m} K={k} n_bits={n_bits}): kernel "
+                         f"{row['ms']:.4f} ms/launch, plain {plain_txt}, bound {bound:.4f} ms "
+                         f"({by}){extra}")
+            del words
+        lat_p = torch.rand((2, LAT_DECISIONS, 2), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(6))
+        lat = {"fused": _event_ms(lambda: bayes_decide(OP_KEY, lat_p, LAT_BITS), 50),
+               "composed": _event_ms(lambda: _composed(OP_KEY, lat_p, LAT_BITS), 50),
+               "packed": _event_ms(lambda: bayes_decide_packed(OP_KEY, lat_p, LAT_BITS), 50)}
+        self.say(f"bench_latency decision ({LAT_DECISIONS} decisions, M=K=2, {LAT_BITS} bits), "
+                 f"ms per call through the entry points: fused {lat['fused']:.4f}, composed "
+                 f"{lat['composed']:.4f}, bayes_decide_packed {lat['packed']:.4f}; fused is "
+                 f"{lat['composed'] / lat['fused']:.2f}x the composition")
+        self.report["operator_timing"] = table
+        self.report["latency_decision_ms"] = lat
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -311,6 +659,9 @@ def main() -> int:
         s.phase("kernels", s.kernels)
         s.phase("main_path", s.main_path)
         s.phase("timing", s.timing)
+        s.phase("operators", s.operators)
+        if "operators" not in s.failures:
+            s.phase("operator_timing", s.operator_timing)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(s.report, indent=1, default=str))
@@ -322,7 +673,7 @@ def main() -> int:
         "name": "net_sweep",
         "route": "cuda",
         "source": "src/repro_torch/kernels/net_sweep/csrc/net_sweep.cu",
-        "replaces": "src/repro/kernels/net_sweep/kernel.py:38",
+        "replaces": REPLACES["net_sweep"],
         "launches": s.launches,
         "max_abs_err": s.max_err,
         "ms": t["ms"],
@@ -332,6 +683,22 @@ def main() -> int:
         "library_ms": None,
         "at": f"{TIMED_SCENARIO} B={BATCH} n_bits={N_BITS}",
     }]}
+    for name, sizes in s.report["operator_timing"].items():
+        line, full = sizes["line"], sizes["full"]
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": s.op_launches[name],
+            "max_abs_err": s.op_err[name], "ms": line["ms"], "plain_ms": line["plain_ms"],
+            "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
+            "library_ms": None,   # no single PyTorch call computes it
+            "at": f"paper-bayes-fusion M=2 K=16 n_bits=128, first {LINE_PIXELS} pixels",
+            "full_ms": full["ms"], "full_bound_ms": full["bound_ms"],
+        }
+        if name == "fusion_map":
+            entry["composed_ms"] = line["composed_ms"]
+            entry["full_composed_ms"] = full["composed_ms"]
+        kernels["kernels"].append(entry)
     print(s.name_power)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,11 @@ sum are the wrapped uint32 product, with no reliance on signed overflow.
 
 Thresholds are the 8-bit DAC grid ``round(p * 256)`` with round-half-even, as
 in the reference (``p = (2k+1)/512`` sits exactly on a half step).
+
+The paper's operators (``sne_encode``, ``bayes_decide``) draw *word* entropy
+instead: :func:`counter_hash_words` runs both lowbias32 rounds over the
+row-major counter of every entropy word, and each word gives 4 comparator
+bytes.  :func:`packed_from_bytes` is the comparator and packer of those words.
 """
 
 from __future__ import annotations
@@ -22,7 +27,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.bitops import MASK32
+from repro_torch.core.bitops import MASK32, as_i32, n_words
+
+# Stream bits contributed by one 32-bit entropy word (one per byte).
+BITS_PER_RAND_WORD = 4
+# Entropy words consumed per packed output word (32 stream bits / 4 per word).
+RAND_WORDS_PER_OUT_WORD = 8
 
 # Dense, well-spread odd salts (xxhash/murmur/splitmix finalizer constants);
 # XORed into the second keyed round to separate the 8 bit-planes of one word.
@@ -35,6 +45,16 @@ PLANE_SALTS = (
 def threshold_int(p: float) -> int:
     """Probability -> 8-bit comparator threshold in [0, 256] (half-even)."""
     return int(np.clip(np.round(np.float32(p) * 256.0), 0.0, 256.0))
+
+
+def threshold_from_p(p: torch.Tensor) -> torch.Tensor:
+    """Probabilities -> int64 8-bit comparator thresholds in [0, 256].
+
+    float32 ``p * 256`` is exact and ``torch.round`` rounds half to even, as
+    ``jnp.round`` does.
+    """
+    p = torch.as_tensor(p, dtype=torch.float32)
+    return torch.clamp(torch.round(p * 256.0), 0.0, 256.0).to(torch.int64)
 
 
 def cdf_thresholds_int(probs) -> tuple:
@@ -57,6 +77,11 @@ def cdf_thresholds_int(probs) -> tuple:
         out.append(t)
         prev = t
     return tuple(out)
+
+
+def n_rand_words(n_bits: int) -> int:
+    """32-bit entropy words needed for ``n_bits`` stream bits (word-padded)."""
+    return n_words(n_bits) * RAND_WORDS_PER_OUT_WORD
 
 
 def seed_words(key) -> tuple:
@@ -91,3 +116,67 @@ def plane_base(ctr: torch.Tensor, kd0: int) -> torch.Tensor:
 def plane_word(base: torch.Tensor, kd1: int, plane: int) -> torch.Tensor:
     """Second keyed round: one word of fair bits for bit-plane ``plane``."""
     return _lowbias32(base ^ ((PLANE_SALTS[plane] ^ kd1) & MASK32))
+
+
+def counter_iota(shape: tuple, offset: int = 0, device=None) -> torch.Tensor:
+    """Row-major flat counters of ``shape`` plus ``offset``, mod 2**32 (int64).
+
+    Each axis adds ``arange * stride`` at the output shape, so no flat 1-D
+    intermediate is built.  The sum is taken in int64 (exact below 2**63)
+    and wrapped once, which equals the reference's uint32 iota sums.
+    """
+    shape = tuple(int(d) for d in shape)
+    ctr = torch.tensor(int(offset) & MASK32, dtype=torch.int64, device=device)
+    stride = 1
+    for axis in reversed(range(len(shape))):
+        view = [1] * len(shape)
+        view[axis] = shape[axis]
+        iota = torch.arange(shape[axis], dtype=torch.int64, device=device)
+        ctr = ctr + (iota * stride).view(view)
+        stride *= shape[axis]
+    return ctr.expand(shape) & MASK32
+
+
+def counter_hash_words(key, shape: tuple, n_words: int, *, offset: int = 0,
+                       device=None) -> torch.Tensor:
+    """``shape + (n_words,)`` entropy words (int64 in [0, 2**32)).
+
+    Word ``i`` is ``lowbias32(lowbias32(ctr_i ^ kd0) ^ kd1)`` where ``ctr_i``
+    is its row-major flat index plus ``offset``, mod 2**32 -- the reference's
+    generator bit for bit, and what the CUDA operators compute in-kernel.
+    """
+    kd0, kd1 = seed_words(key)
+    ctr = counter_iota(tuple(shape) + (int(n_words),), offset, device)
+    return _lowbias32(_lowbias32(ctr ^ kd0) ^ kd1)
+
+
+def packed_from_bytes(rand: torch.Tensor, thresh, flip=None) -> torch.Tensor:
+    """Byte-threshold compare and pack: the SNE comparator, packed.
+
+    rand:   (..., n_rand) int64 entropy words in [0, 2**32), n_rand % 8 == 0.
+    thresh: int64 thresholds in [0, 256], broadcastable to ``rand.shape[:-1]``.
+    flip:   optional bool mask (same broadcast): streams whose comparator is
+            complemented (byte -> 255 - byte).
+
+    Returns (..., n_rand // 8) int32 packed words.  Stream bit ``4r + b``
+    comes from byte ``b`` of entropy word ``r``; it lands in output word
+    ``r // 8`` at bit ``4 * (r % 8) + b`` (the interleaved layout of the
+    ``sne_encode`` kernel, not natural bit order).
+    """
+    n_rand = rand.shape[-1]
+    if n_rand % RAND_WORDS_PER_OUT_WORD:
+        raise ValueError(f"n_rand must be a multiple of 8, got {n_rand}")
+    thresh = torch.as_tensor(thresh, dtype=torch.int64, device=rand.device)[..., None]
+    if flip is not None:
+        flip = torch.as_tensor(flip, dtype=torch.bool, device=rand.device)[..., None]
+    shifts = torch.arange(8, dtype=torch.int64, device=rand.device) * 4
+    acc = None
+    for byte in range(BITS_PER_RAND_WORD):
+        lane = (rand >> (8 * byte)) & 0xFF
+        if flip is not None:
+            lane = torch.where(flip, 0xFF - lane, lane)
+        bits = (lane < thresh).to(torch.int64)
+        grouped = bits.reshape(bits.shape[:-1] + (n_rand // 8, 8))
+        word = (grouped << (shifts + byte)).sum(-1)
+        acc = word if acc is None else acc | word
+    return as_i32(acc)

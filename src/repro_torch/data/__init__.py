@@ -1,1 +1,1 @@
-"""Synthetic sensor data (scene configuration only, so far)."""
+"""Synthetic sensor data: the scene configuration and the RGB/thermal scenes."""

@@ -1,13 +1,22 @@
-"""Synthetic FLIR-like detection statistics (the Fig 4 / Movie S1 data).
+"""Synthetic FLIR-like RGB/thermal detection maps (the Fig 4 / Movie S1 data).
 
-Only the scene configuration is ported so far: the scenario networks take
-their sensor CPTs from it.  The per-pixel rollout synthesis that draws scenes
-from it is still to be ported (ROADMAP queue 1).
+The real FLIR dataset is not available offline; aligned RGB/thermal per-pixel
+obstacle-probability maps are generated with the failure modes the paper
+describes: RGB misses targets at night or in harsh lighting, thermal misses
+targets without heat emission.  Ground truth is known, so the fusion's gain
+in detection rate and confidence is measurable.
+
+:func:`make_scene` draws from an explicit ``torch.Generator``; it cannot
+reproduce the reference's ``jax.random`` draws, only their distribution.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
+
+from repro_torch.kernels.backend import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,3 +31,57 @@ class SceneConfig:
     strong: float = 0.85            # detector confidence on a clear target
     weak: float = 0.52              # "insufficient evidence", NOT a confident
                                     # rejection -- the regime fusion can rescue
+
+
+def make_scene(gen: torch.Generator, cfg: SceneConfig, *, device="cuda"):
+    """Returns (gt (H, W) {0,1}, p_rgb (H, W), p_thermal (H, W), night flag).
+
+    Draws on the generator's device, then moves the maps to ``device``.
+    Failure modes are independent per obstacle and per modality (the paper's
+    Fig 4 setting): a missed target yields a *weak* confidence around 0.5
+    (insufficient evidence), so conditionally-independent fusion (eq 5) can
+    recover targets that either single modality loses.
+    """
+    dev = resolve_device(device)
+    h, w, n = cfg.height, cfg.width, cfg.n_obstacles
+    draw = dict(generator=gen, device=gen.device)
+    cy = torch.randint(4, h - 4, (n,), **draw)
+    cx = torch.randint(4, w - 4, (n,), **draw)
+    rad = torch.randint(2, 6, (n,), **draw)
+    night = torch.rand((), **draw) < cfg.night_fraction
+    rgb_vis = torch.where(night, cfg.rgb_vis_night, cfg.rgb_vis_day)
+    rgb_clear = torch.rand((n,), **draw) < rgb_vis
+    th_clear = torch.rand((n,), **draw) < cfg.thermal_vis
+    noise = 0.06 * torch.rand((2, h, w), **draw)
+    cy, cx, rad, night, rgb_clear, th_clear, noise = (
+        t.to(dev) for t in (cy, cx, rad, night, rgb_clear, th_clear, noise))
+
+    yy = torch.arange(h, device=dev)[:, None]
+    xx = torch.arange(w, device=dev)[None, :]
+    dist2 = (yy[None] - cy[:, None, None]) ** 2 + (xx[None] - cx[:, None, None]) ** 2
+    inside = dist2 <= rad[:, None, None] ** 2                       # (N, H, W)
+    gt = inside.any(0).to(torch.float32)
+
+    rgb_strength = torch.where(rgb_clear, cfg.strong, cfg.weak)[:, None, None]
+    th_strength = torch.where(th_clear, cfg.strong, cfg.weak)[:, None, None]
+    rgb_det = (inside * rgb_strength).amax(0)
+    th_det = (inside * th_strength).amax(0)
+
+    p_rgb = torch.clamp(rgb_det * (1 - noise[0]) + noise[0] * 0.5, 0.02, 0.98)
+    p_th = torch.clamp(th_det * (1 - noise[1]) + noise[1] * 0.5, 0.02, 0.98)
+    # background base rate
+    p_rgb = torch.where(gt > 0, p_rgb, 0.05 + noise[0])
+    p_th = torch.where(gt > 0, p_th, 0.05 + noise[1])
+    return gt, p_rgb, p_th, night
+
+
+def detection_metrics(gt: torch.Tensor, p: torch.Tensor, thresh: float = 0.6):
+    """(detection rate on gt pixels, false-positive rate, mean confidence on gt)."""
+    gt = torch.as_tensor(gt, dtype=torch.float32)
+    p = torch.as_tensor(p, dtype=torch.float32, device=gt.device)
+    det = (p > thresh).to(torch.float32)
+    n_gt = torch.clamp(gt.sum(), min=1)
+    tp = (det * gt).sum() / n_gt
+    fp = (det * (1 - gt)).sum() / torch.clamp((1 - gt).sum(), min=1)
+    conf = (p * gt).sum() / n_gt
+    return tp, fp, conf
