@@ -43,6 +43,26 @@ Phases (any failure makes the script exit non-zero without the result line):
               versions (slice only: the plain versions do not fit at full
               size), their bounds, and the composed torch expression for
               ``fusion_map``.
+8. unfused_kernels -- the three ``node_mux`` kernels (gather, rows, cat)
+              against their plain versions on the card, bit for bit, at 1 to
+              3 parents (6 for gather and rows), k-ary nodes with mixed parent
+              cards and with no parents, and counter origins that wrap 2**32.
+9. unfused_path -- the unfused lowering through its entry points at
+              n_bits=4096, B=1024, counts reset just before and read just
+              after: 7 scenarios x {``fused=False``, ``share_entropy=True``},
+              ``mux_mode='rows'`` on the 4 binary scenarios and
+              ``estimator='fill'`` on two, each ``decide`` bit-equal to the
+              same program compiled with ``device="cpu"``; a ``FrameDriver``
+              over each ``fused=False`` network draining 1024 frames in sync
+              and async mode, rid for rid against a ``device="cpu"`` driver.
+              Then the unfused, shared-entropy and fused posteriors against the
+              enumeration oracle: per distinct evidence vector, the posterior
+              pooled over its frames within 4.5 sqrt(p (1-p) / accepted).
+10. unfused_timing -- CUDA-event times per launch of the three kernels at
+              B=1024 and B=65,536 (n_bits=4096) beside their plain versions
+              and bounds; launches of each kernel per unfused ``run`` of each
+              scenario; wall time per 1024-frame batch of the unfused, shared
+              and fused programs.
 
 Before the last line it prints the ``nvidia-smi`` name/power-limit line and a
 ``{"kernels": [...]}`` JSON line; the last line is
@@ -66,6 +86,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.bayesnet import analytic  # noqa: E402
 from repro_torch.bayesnet import (  # noqa: E402
     SCENARIOS,
     FrameDriver,
@@ -76,7 +97,7 @@ from repro_torch.bayesnet import (  # noqa: E402
     sweep_plan,
 )
 from repro_torch.configs.paper_bayes import full_config  # noqa: E402
-from repro_torch.core import prng, rng  # noqa: E402
+from repro_torch.core import bitops, prng, rng  # noqa: E402
 from repro_torch.data import detection  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     backend,
@@ -92,6 +113,12 @@ from repro_torch.kernels.fusion_map import kernel as fm_kernel  # noqa: E402
 from repro_torch.kernels.fusion_map.ref import fusion_map_ref, log_prior  # noqa: E402
 from repro_torch.kernels.net_sweep import kernel as net_sweep_kernel  # noqa: E402
 from repro_torch.kernels.net_sweep import record_program, sweep_tile  # noqa: E402
+from repro_torch.kernels.node_mux import kernel as nm_kernel  # noqa: E402
+from repro_torch.kernels.node_mux.ref import (  # noqa: E402
+    cat_gather_body,
+    node_mux_gather_ref,
+    node_mux_ref,
+)
 from repro_torch.kernels.pand_popcount import kernel as pp_kernel  # noqa: E402
 from repro_torch.kernels.pand_popcount.ref import pand_popcount_ref  # noqa: E402
 from repro_torch.kernels.sne_encode import kernel as sne_kernel  # noqa: E402
@@ -116,14 +143,26 @@ OP_SLICE = 4096                       # pixels per slice held against the plain 
 LINE_PIXELS = 65536                   # the kernels line: a slice of the full batch
 LAT_DECISIONS, LAT_BITS = 4096, 128   # bench_latency's decision workload (M = K = 2)
 FM_ATOL, FM_RTOL = 2e-6, 1e-5         # fusion_map: card logf/expf vs torch log/exp
+NM_KEY = np.array([0x85EBCA6B, 0x3C6EF372], np.uint32)     # seed words of the node_mux checks
+NM_WRAP = 2**32 - 5000                # a counter origin whose draws wrap 2**32
+NM_BIG = 65536                        # rows where the launch no longer dominates (32 MB out)
+NM_KERNELS = ("node_mux_gather", "node_mux_rows", "node_mux_cat")
+UNFUSED_DRAIN = 1024                  # frames per unfused driver drain
+# the unfused path's programs: mode -> compile_network keywords
+UNFUSED_MODES = {"unfused": dict(fused=False), "shared": dict(share_entropy=True),
+                 "rows": dict(mux_mode="rows"), "fill": dict(estimator="fill")}
 KERNEL_MODULES = {
     "net_sweep": net_sweep_kernel, "sne_encode": sne_kernel,
     "pand_popcount": pp_kernel, "bayes_decide": bd_kernel, "fusion_map": fm_kernel,
+    "node_mux": nm_kernel,
 }
 LAUNCHERS = {
     "net_sweep": net_sweep_kernel.net_sweep_cuda, "sne_encode": sne_kernel.sne_encode_cuda,
     "pand_popcount": pp_kernel.pand_popcount_cuda, "bayes_decide": bd_kernel.bayes_decide_cuda,
     "fusion_map": fm_kernel.fusion_map_cuda,
+    "node_mux_gather": nm_kernel.node_mux_gather_cuda,
+    "node_mux_rows": nm_kernel.node_mux_rows_cuda,
+    "node_mux_cat": nm_kernel.node_mux_cat_cuda,
 }
 REPLACES = {
     "net_sweep": "src/repro/kernels/net_sweep/kernel.py:38",
@@ -131,6 +170,9 @@ REPLACES = {
     "pand_popcount": "src/repro/kernels/pand_popcount/kernel.py:18",
     "bayes_decide": "src/repro/kernels/bayes_decide/kernel.py:27",
     "fusion_map": "src/repro/kernels/fusion_map/kernel.py:18",
+    "node_mux_gather": "src/repro/kernels/node_mux/kernel.py:63",
+    "node_mux_rows": "src/repro/kernels/node_mux/kernel.py:37",
+    "node_mux_cat": "src/repro/kernels/node_mux/kernel.py:86",
 }
 
 
@@ -206,6 +248,94 @@ def _class_posteriors(gen, m, r, k):
     """(M, R, K) peaked per-pixel class posteriors: softmax of N(0, 3^2) logits."""
     logits = torch.randn((m, r, k), generator=gen, device="cuda").mul_(3.0)
     return torch.softmax(logits, dim=-1)
+
+
+def _rand_words(gen, shape):
+    """Uniform int32 words on the card (the parent streams of the kernel checks)."""
+    return bitops.as_i32(torch.randint(0, 2**32, shape, generator=gen, device="cuda",
+                                       dtype=torch.int64))
+
+
+def _node_table(name, node, b):
+    """(table, parent cards, card) of one scenario node, broadcast over ``b`` rows:
+    float32 CPT rows (R, L) for an all-binary node, int32 CDF rows (R, L, k-1) else."""
+    spec = by_name(name)
+    rows = spec.cpt_rows(node)
+    card, pcards = spec.card(node), tuple(spec.card(p) for p in spec.node(node).parents)
+    if card == 2 and all(c == 2 for c in pcards):
+        table = torch.tensor([r[1] for r in rows], dtype=torch.float32, device="cuda")
+        return table.expand(b, -1).contiguous(), pcards, card
+    table = torch.tensor([rng.cdf_thresholds_int(r) for r in rows], dtype=torch.int32,
+                         device="cuda")
+    return table.expand(b, -1, -1).contiguous(), pcards, card
+
+
+def _selected_leaf_words(parents):
+    """Entropy words that row-encode needs for these parent streams.
+
+    Each entropy word carries 4 stream positions (a nibble of the output
+    word), and a position keeps the byte of the one CPT row its parents
+    select (first parent = most significant bit).  So a row's entropy word
+    is needed only where one of the 4 positions selects that row: the count
+    of distinct rows per nibble, summed over the run's data.
+    """
+    m, rows, _ = parents.shape
+    bit = torch.arange(32, dtype=torch.int32, device=parents.device)
+    total = 0
+    for r0 in range(0, rows, 4096):
+        par = parents[:, r0:r0 + 4096]
+        leaf = torch.zeros(par.shape[1:] + (32,), dtype=torch.int32, device=par.device)
+        for j in range(m):
+            leaf = (leaf << 1) | ((par[j, ..., None] >> bit) & 1)
+        a, b, c, d = leaf.view(leaf.shape[:-1] + (8, 4)).unbind(-1)
+        total += int((1 + (b != a).int() + ((c != a) & (c != b)).int()
+                      + ((d != a) & (d != b) & (d != c)).int()).sum())
+    return total
+
+
+def _nm_calls(name, kd, table, parents, cards, b, n_leaves):
+    """(kernel, plain version) of one node_mux launch as zero-argument calls."""
+    n_rand_shape = (b, n_leaves) if name == "node_mux_rows" else (b,)
+
+    def entropy():
+        return _entropy(NM_KEY, n_rand_shape, N_BITS, 0)
+
+    if name == "node_mux_cat":
+        return (lambda: nm_kernel.node_mux_cat_cuda(*kd, table, parents, cards=cards,
+                                                    n_bits=N_BITS),
+                lambda: cat_gather_body(table, entropy(), parents, cards))
+    if name == "node_mux_gather":
+        return (lambda: nm_kernel.node_mux_gather_cuda(*kd, table, parents, n_bits=N_BITS),
+                lambda: node_mux_gather_ref(table, entropy(), parents))
+    return (lambda: nm_kernel.node_mux_rows_cuda(*kd, table, parents, n_bits=N_BITS),
+            lambda: node_mux_ref(table, entropy(), parents))
+
+
+def _pooled_z(ev, post, acc, exact, shared):
+    """Largest |z| of a posterior against the oracle, per distinct evidence vector.
+
+    Frames with one evidence vector share its exact posterior.  With
+    independent entropy their counts pool (posterior x accepted, summed); with
+    shared entropy they are copies, so one frame stands for all.  A group is
+    held to 4.5 sqrt(p (1-p) / accepted) of its pooled accepted count, with
+    p (1-p) floored at 1e-3 and groups of 50 or fewer accepted bits skipped, as
+    the reference's oracle tests do.  Returns (max z, groups checked).
+    """
+    _, inv = np.unique(ev, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    zmax, groups = 0.0, 0
+    for g in range(int(inv.max()) + 1):
+        idx = np.flatnonzero(inv == g)[: 1 if shared else None]
+        a = acc[idx].astype(np.float64)
+        n = a.sum()
+        if n <= 50:
+            continue
+        pooled = (post[idx] * a.reshape((-1,) + (1,) * (post.ndim - 1))).sum(0) / n
+        p = exact[idx[0]]
+        sigma = np.sqrt(np.clip(p * (1 - p), 1e-3, None) / n)
+        zmax = max(zmax, float((np.abs(pooled - p) / sigma).max()))
+        groups += 1
+    return zmax, groups
 
 
 def _obstacle_flow(device):
@@ -646,6 +776,230 @@ class Smoke:
         self.report["operator_timing"] = table
         self.report["latency_decision_ms"] = lat
 
+    # ---------------------------------------------------------- unfused lowering
+    def _nm_note(self, name, got, want):
+        err = _int_err(got, want)
+        self.nm_err[name] = max(self.nm_err[name], err)
+        if err:
+            raise AssertionError(f"{name} differs from its plain version: max abs err {err}")
+
+    def unfused_kernels(self):
+        """Each node_mux kernel against its plain version on the same inputs, on the card."""
+        self.nm_err = {name: 0 for name in NM_KERNELS}
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        kd = rng.seed_words(NM_KEY)
+        half_steps = (2 * torch.arange(8, device="cuda") + 1) / 512
+        # (parents, rows, n_bits, counter origin)
+        binary = [(0, 333, 128, 0), (1, BATCH, N_BITS, 0), (2, BATCH, N_BITS, NM_WRAP),
+                  (3, BATCH, N_BITS, 0), (3, 1000, N_BITS, NM_WRAP), (6, 300, 256, NM_WRAP)]
+        for m, rows, n_bits, off in binary:
+            cpt = torch.rand((rows, 1 << m), generator=gen, device="cuda")
+            cpt.view(-1)[:8] = half_steps[: cpt.numel()]
+            cpt[-1] = 1.0
+            par = _rand_words(gen, (m, rows, n_bits // 32))
+            self._nm_note("node_mux_gather",
+                          nm_kernel.node_mux_gather_cuda(*kd, cpt, par, n_bits=n_bits, offset=off),
+                          node_mux_gather_ref(cpt, _entropy(NM_KEY, (rows,), n_bits, off), par))
+            self._nm_note("node_mux_rows",
+                          nm_kernel.node_mux_rows_cuda(*kd, cpt, par, n_bits=n_bits, offset=off),
+                          node_mux_ref(cpt, _entropy(NM_KEY, (rows, 1 << m), n_bits, off), par))
+        # (cards, rows, n_bits, counter origin): obstacle-class's rgb_class, k-ary
+        # roots (no parents), parents of card 3 (their planes spell digit 3)
+        cat = [((4, 4, 2), BATCH, N_BITS, 0), ((3,), BATCH, N_BITS, NM_WRAP), ((4,), 257, 128, 0),
+               ((3, 3, 2), 1000, N_BITS, NM_WRAP), ((2, 3, 2, 2), BATCH, 256, 0),
+               ((5, 2, 2, 2, 2), 300, 256, NM_WRAP)]
+        for cards, rows, n_bits, off in cat:
+            k, pcards = cards[0], cards[1:]
+            n_leaves = int(np.prod(pcards)) if pcards else 1
+            levels = torch.randint(0, 257, (rows, n_leaves, k - 1), generator=gen, device="cuda")
+            cdf = torch.sort(levels, dim=-1, descending=True).values.to(torch.int32)
+            par = _rand_words(gen, (sum(bitops.value_bits(c) for c in pcards), rows, n_bits // 32))
+            self._nm_note("node_mux_cat",
+                          nm_kernel.node_mux_cat_cuda(*kd, cdf, par, cards=cards, n_bits=n_bits,
+                                                      offset=off),
+                          cat_gather_body(cdf, _entropy(NM_KEY, (rows,), n_bits, off), par, cards))
+        torch.cuda.synchronize()
+        print(f"node_mux: {len(binary)} gather and rows cases, {len(cat)} cat cases (0-6 "
+              f"parents, k-ary roots, counter origins wrapping 2**32) equal to the plain "
+              f"versions: max abs err {self.nm_err} (tolerance 0: packed words must match "
+              f"exactly)", flush=True)
+
+    def unfused_path(self):
+        """The unfused lowering through its entry points, against device="cpu"."""
+        cases = [(n, "unfused") for n in NAMES] + [(n, "shared") for n in NAMES]
+        cases += [(n, "rows") for n in NAMES if by_name(n).max_card() == 2]
+        cases += [("pedestrian-night", "fill"), ("obstacle-class", "fill")]
+        key = prng.PRNGKey(23)
+        ev = {n: analytic.sample_evidence(by_name(n), torch.Generator().manual_seed(11),
+                                          BATCH).numpy() for n in NAMES}
+        drain = {n: _evidence(by_name(n), UNFUSED_DRAIN, seed=19) for n in NAMES}
+        plain, refs = {}, {}
+        for name, mode in cases:
+            net = compile_network(by_name(name), n_bits=N_BITS, device="cpu",
+                                  **UNFUSED_MODES[mode])
+            plain[name, mode] = net.decide(key, ev[name])
+        for i, n in enumerate(NAMES):
+            net = compile_network(by_name(n), n_bits=N_BITS, device="cpu", fused=False)
+            d = FrameDriver(net, max_batch=MAX_BATCH, salt=500 + i)
+            d.submit(drain[n])
+            refs[n] = d.drain()
+        torch.cuda.synchronize()
+        nets = {(name, mode): compile_network(by_name(name), n_bits=N_BITS, device="cuda",
+                                              **UNFUSED_MODES[mode]) for name, mode in cases}
+        torch.cuda.synchronize()
+        _reset_launches()                                    # the unfused path starts
+        outs, drains = {}, {}
+        # a compiled unfused program only launches: any wait on the stream raises here
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for name, mode in cases:
+                outs[name, mode] = nets[name, mode].decide(key, ev[name])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for i, n in enumerate(NAMES):
+            net = compile_network(by_name(n), n_bits=N_BITS, device="cuda", fused=False)
+            sync = FrameDriver(net, max_batch=MAX_BATCH, salt=500 + i)
+            sync.submit(drain[n])
+            asyn = FrameDriver(net, max_batch=MAX_BATCH, salt=500 + i)
+            asyn.submit(drain[n])
+            drains[n] = (sync.drain(), asyn.drain_async())
+        torch.cuda.synchronize()
+        self.nm_launches = _launches()                       # the unfused path ends
+        for name in NM_KERNELS + ("sne_encode",):
+            if self.nm_launches[name] <= 0:
+                raise AssertionError(f"the unfused path launched {name} 0 times")
+        for case, got in outs.items():
+            post, dec, acc = (t.cpu() for t in got)
+            want = plain[case]
+            if not (torch.equal(post, want[0]) and torch.equal(dec, want[1])
+                    and torch.equal(acc, want[2])):
+                raise AssertionError(f"{case}: the unfused program on the card differs "
+                                     f"from device='cpu'")
+            if not (bool(torch.isfinite(post).all()) and float(post.min()) >= 0
+                    and float(post.max()) <= 1 and torch.equal(dec, posterior_argmax(post))):
+                raise AssertionError(f"{case}: posterior not in [0, 1] or decisions not its argmax")
+        for n in NAMES:
+            for out in drains[n]:
+                if sorted(out) != list(range(UNFUSED_DRAIN)):
+                    raise AssertionError(f"{n}: unfused drain rids are not 0..{UNFUSED_DRAIN - 1}")
+                for rid, (p, a) in out.items():
+                    rp, ra = refs[n][rid]
+                    if not np.array_equal(p, rp) or a != ra:
+                        raise AssertionError(f"{n}: unfused driver rid {rid} differs from the "
+                                             f"device='cpu' driver")
+        # against the enumeration oracle: unfused, shared entropy, and the fused sweep
+        zrows = {}
+        for n in NAMES:
+            exact = analytic.make_posterior_fn(by_name(n), dac_quantize=True,
+                                               device="cuda")(ev[n])[0].cpu()
+            fused = compile_network(by_name(n), n_bits=N_BITS, device="cuda").run(key, ev[n])
+            runs = {"unfused": (outs[n, "unfused"][0], outs[n, "unfused"][2]),
+                    "shared": (outs[n, "shared"][0], outs[n, "shared"][2]), "fused": fused}
+            for mode, (post, acc) in runs.items():
+                z, groups = _pooled_z(ev[n], post.cpu().numpy(), acc.cpu().numpy(),
+                                      exact.numpy(), mode == "shared")
+                zrows[f"{n}/{mode}"] = {"max_z": z, "groups": groups}
+                if z >= 4.5:
+                    raise AssertionError(f"{n} {mode}: posterior {z:.2f} sigma from the oracle")
+        torch.cuda.synchronize()
+        worst = max(zrows.items(), key=lambda kv: kv[1]["max_z"])
+        self.say(f"unfused path: {len(cases)} programs at n_bits={N_BITS}, B={BATCH} "
+                 f"(7 scenarios x fused=False / share_entropy=True, rows on the binary 4, fill "
+                 f"on 2) equal to device='cpu', none waiting on the stream (sync debug mode "
+                 f"'error'); 7 x sync + async unfused FrameDriver drains of "
+                 f"{UNFUSED_DRAIN} frames equal rid for rid; unfused, shared and fused posteriors "
+                 f"within 4.5 sigma of the oracle (largest {worst[1]['max_z']:.2f} at {worst[0]}); "
+                 f"launches {self.nm_launches}")
+        self.report["unfused_path"] = {"launches": self.nm_launches, "oracle_z": zrows,
+                                       "programs": [f"{n}/{m}" for n, m in cases]}
+
+    def _nm_bound(self, name, rows, n_leaves, k, planes, n_bits, hashed=None):
+        """(bound ms, what sets it, operations, bytes) of one node_mux launch.
+
+        One hash per entropy word the function needs -- ``hashed`` for
+        row-encode (:func:`_selected_leaf_words`), one per 4 stream bits
+        otherwise -- and one compare per stream bit and level.
+        """
+        w = n_bits // 32
+        words = rows * w * 8
+        hashed = words if hashed is None else hashed
+        ops = hashed * (OPS_PER_ENTROPY_WORD - 4) + words * 4 * (k - 1)
+        table = rows * n_leaves * 4 * (k - 1)                      # cpt or cdf rows
+        nbytes = table + 4 * rows * w * (planes + bitops.value_bits(k))
+        op_ms = ops / self.int32_ops_per_s * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes"), ops, nbytes
+
+    def unfused_timing(self):
+        kd = rng.seed_words(NM_KEY)
+        gen = torch.Generator(device="cuda").manual_seed(41)
+        nodes = {"node_mux_gather": ("intersection", "rgb_cross"),
+                 "node_mux_rows": ("intersection", "rgb_cross"),
+                 "node_mux_cat": ("obstacle-class", "rgb_class")}
+        table = {name: {} for name in NM_KERNELS}
+        w = N_BITS // 32
+        for b in (BATCH, NM_BIG):
+            for name, (scen, node) in nodes.items():
+                tab, pcards, card = _node_table(scen, node, b)
+                planes = sum(bitops.value_bits(c) for c in pcards)
+                par = _rand_words(gen, (planes, b, w))
+                n_leaves = tab.shape[1]
+                kernel, plain = _nm_calls(name, kd, tab, par, (card,) + pcards, b, n_leaves)
+                hashed = _selected_leaf_words(par) if name == "node_mux_rows" else None
+                bound, by, ops, nbytes = self._nm_bound(name, b, n_leaves, card, planes, N_BITS,
+                                                        hashed)
+                row = {"rows": b, "node": f"{scen}/{node}", "ms": _event_ms(kernel, 50),
+                       "bound_ms": bound, "bound_by": by, "ops": ops, "bytes": nbytes,
+                       "hashed_words": hashed or b * w * 8,
+                       "kernel_hashed_words": b * w * 8 * (n_leaves if hashed else 1),
+                       "plain_ms": _event_ms(plain, 3, warmup=1) if b == BATCH else None}
+                table[name][b] = row
+                plain_txt = "not measured (B=1024 only)" if row["plain_ms"] is None \
+                    else f"{row['plain_ms']:.3f} ms"
+                self.say(f"{name} {scen}/{node} B={b} n_bits={N_BITS}: kernel {row['ms']:.4f} "
+                         f"ms/launch, plain {plain_txt}, bound {bound:.4f} ms ({by}; "
+                         f"{row['hashed_words']} entropy words needed, the kernel hashes "
+                         f"{row['kernel_hashed_words']})")
+                del par, tab
+        per_run, run_ms, dispatch_ms = {}, {}, {}
+        key = prng.PRNGKey(29)
+        for n in NAMES:
+            spec = by_name(n)
+            ev = _evidence(spec, BATCH, seed=3)
+            nets = {mode: compile_network(spec, n_bits=N_BITS, device="cuda", **kw)
+                    for mode, kw in (("unfused", dict(fused=False)),
+                                     ("shared", dict(share_entropy=True)), ("fused", {}),
+                                     ("rows", dict(mux_mode="rows")))
+                    if mode != "rows" or spec.max_card() == 2}
+            per_run[n] = {}
+            for mode in ("unfused", "rows"):
+                if mode in nets:
+                    nets[mode].run(key, ev)
+                    torch.cuda.synchronize()
+                    _reset_launches()
+                    nets[mode].run(key, ev)
+                    torch.cuda.synchronize()
+                    per_run[n][mode] = {k: v for k, v in _launches().items() if v}
+            run_ms[n], dispatch_ms[n] = {}, {}
+            for mode, net in nets.items():
+                net.run(key, ev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    net.run(key, ev)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                run_ms[n][mode] = (time.perf_counter() - t0) / 10 * 1e3
+                dispatch_ms[n][mode] = (t1 - t0) / 10 * 1e3
+            self.say(f"{n} B={BATCH} n_bits={N_BITS}: ms per run (wall, synchronised) "
+                     + ", ".join(f"{m} {v:.3f}" for m, v in run_ms[n].items())
+                     + "; host dispatch "
+                     + ", ".join(f"{m} {v:.3f}" for m, v in dispatch_ms[n].items())
+                     + f"; unfused/fused {run_ms[n]['unfused'] / run_ms[n]['fused']:.1f}x; "
+                     f"launches per unfused run {per_run[n]}")
+        self.report["unfused_timing"] = {"kernels": table, "launches_per_run": per_run,
+                                         "run_ms": run_ms, "dispatch_ms": dispatch_ms}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -662,6 +1016,11 @@ def main() -> int:
         s.phase("operators", s.operators)
         if "operators" not in s.failures:
             s.phase("operator_timing", s.operator_timing)
+        s.phase("unfused_kernels", s.unfused_kernels)
+        if "unfused_kernels" not in s.failures:
+            s.phase("unfused_path", s.unfused_path)
+        if "unfused_path" not in s.failures:
+            s.phase("unfused_timing", s.unfused_timing)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(s.report, indent=1, default=str))
@@ -699,6 +1058,18 @@ def main() -> int:
             entry["composed_ms"] = line["composed_ms"]
             entry["full_composed_ms"] = full["composed_ms"]
         kernels["kernels"].append(entry)
+    for name, sizes in s.report["unfused_timing"]["kernels"].items():
+        row, big = sizes[BATCH], sizes[NM_BIG]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/node_mux/csrc/node_mux.cu",
+            "replaces": REPLACES[name], "launches": s.nm_launches[name],
+            "max_abs_err": s.nm_err[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None,   # no PyTorch call computes it
+            "at": f"{row['node']} B={BATCH} n_bits={N_BITS}",
+            "ms_65536": big["ms"], "bound_ms_65536": big["bound_ms"],
+        })
     print(s.name_power)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,16 @@
-"""Bayesian-network compiler, fused decision path (DESIGN.md SS8-SS10), in torch.
+"""Bayesian-network compiler (DESIGN.md SS8-SS10), in torch.
 
     spec.py        NetworkSpec / Node -- the source language; nodes carry a
                    cardinality k (binary = the k=2 special case)
-    compile.py     the fused lowering: one net_sweep launch per batch, with
-                   the decision argmax inside the kernel; noise= perturbs
-                   every DAC threshold through the crossbar model
+    compile.py     the fused lowering (one net_sweep launch per batch, with
+                   the decision argmax inside the kernel) or the unfused one
+                   (a sne_encode / node_mux launch per node, then the
+                   conditioning and a ratio or CORDIV-fill estimate); noise=
+                   perturbs every DAC threshold through the crossbar model
     noise.py       NoiseModel: plan-build-time device-to-device / read-noise /
                    IR-drop / stuck-at perturbation of the DAC thresholds
+    analytic.py    exact mixed-radix enumeration oracle (noise= gives the
+                   perturbed twin) and ancestral sampling of evidence
     reliability.py decision-margin confidence, RetryPolicy, DriftMonitor and
                    the reliability statistics
     scenarios.py   5-12 node driving networks over data/detection statistics
@@ -14,10 +18,10 @@
                    power-of-two buckets, non-blocking dispatch on the CUDA
                    stream, confidence-gated retry, fault recovery, swap_net
 
-Still to port (ROADMAP queue 1): the enumeration oracle (analytic.py), the
-calibrate-back loop (calibrate.py) and the unfused lowering.
+Still to port (ROADMAP queue 1): the calibrate-back loop (calibrate.py).
 """
 
+from repro_torch.bayesnet.analytic import make_posterior_fn, sample_evidence  # noqa: F401
 from repro_torch.bayesnet.compile import (  # noqa: F401
     CompiledNetwork,
     compile_network,

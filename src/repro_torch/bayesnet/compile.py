@@ -1,22 +1,39 @@
-"""Compile a :class:`~repro_torch.bayesnet.spec.NetworkSpec` to one fused launch.
+"""Compile a :class:`~repro_torch.bayesnet.spec.NetworkSpec` to the packed domain.
 
-The port carries the reference's **fused** lowering: the whole network --
-per-node categorical threshold-gather sampling, the evidence AND, the CORDIV
-popcount fixed point -- is ONE :func:`~repro_torch.kernels.net_sweep.net_sweep`
-launch.  Entropy is generated in the kernel from counter bit-planes with the
-frame index folded into the counters, so every frame draws an independent
-joint sample and node streams never reach device memory.
+Two lowerings share the spec language, as in the reference:
+
+**Fused** (the default for independent entropy and the ratio estimator): the
+whole network -- per-node categorical threshold-gather sampling, the
+evidence AND, the CORDIV popcount fixed point -- is ONE
+:func:`~repro_torch.kernels.net_sweep.net_sweep` launch.  Entropy is
+generated in the kernel from counter bit-planes with the frame index folded
+into the counters, so every frame draws an independent joint sample and node
+streams never reach device memory.
+
+**Unfused** (one launch per node; the verification baseline, and the only
+path for shared entropy, the ``fill`` estimator and ``mux_mode='rows'``):
+
+* binary roots     -> ``sne_encode`` (bit-equal to ``rng.encode_packed``).
+* k-ary roots      -> ``node_mux_categorical`` with no parents (bit-equal to
+  ``rng.encode_packed_categorical``).
+* all-binary nodes -> ``node_mux`` (``mux_mode='gather'`` or ``'rows'``).
+* k-ary nodes, or binary nodes with k-ary parents -> ``node_mux_categorical``.
+* queries          -> the evidence value indicators are ANDed into the
+  acceptance stream; each query value indicator ANDed with it is a bitwise
+  subset of it.  ``estimator='ratio'`` popcounts both;
+  ``estimator='fill'`` runs the word-parallel ``cordiv_fill`` circuit per
+  value slot.
 
 Posterior contract (as in the reference): when every query node is binary,
 ``run`` returns ``(B, n_q)`` of ``P(q=1 | evidence)``; when any query has
 ``k > 2`` it returns ``(B, n_q, max_k)`` normalised per-value posteriors
 (rows of smaller queries zero-padded).  ``decide`` returns the posterior and
-the per-query MAP decisions taken in the kernel from the same counts.
+the per-query MAP decisions: the fused kernel argmaxes its counts, the
+unfused program argmaxes the posterior -- the same decisions.
 
 ``device=`` names where the program runs and defaults to the card; asking for
-CUDA where there is none raises.  The unfused lowering (``fused=False``,
-``share_entropy=True``, ``estimator='fill'``, ``mux_mode='rows'``) and
-multi-device launches are not ported yet and raise ``NotImplementedError``.
+CUDA where there is none raises.  Multi-device launches are not ported yet
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,12 +46,13 @@ import torch
 
 from repro_torch.bayesnet.noise import NoiseModel, perturbed_cdf_rows
 from repro_torch.bayesnet.spec import NetworkSpec
-from repro_torch.core import cordiv, rng
+from repro_torch.core import bitops, cordiv, prng, rng
 from repro_torch.kernels import backend
 from repro_torch.kernels.net_sweep import SweepPlan, net_sweep
+from repro_torch.kernels.node_mux import node_mux, node_mux_categorical
+from repro_torch.kernels.sne_encode import sne_encode
 from repro_torch.obs import Tracer
 
-_UNFUSED_TODO = "ROADMAP queue 1 item 11 (the unfused lowering)"
 _DEVICES_TODO = "ROADMAP queue 1 item 10 (multi-device launch)"
 
 
@@ -70,6 +88,35 @@ def network_stats(net: "CompiledNetwork") -> dict:
 def _posterior_from_counts(numer: torch.Tensor, denom: torch.Tensor) -> torch.Tensor:
     """Per-frame posteriors from count arrays: numer (B, n_s), denom (B,)."""
     return cordiv.ratio_from_counts(numer, denom[:, None])
+
+
+def _slot_assembler(q_cards: Tuple[int, ...]) -> Callable:
+    """Slot probabilities -> posterior map, for the ``fill`` estimator.
+
+    Slots hold ``P(q = v | e)`` for values ``1 .. k-1`` per query.  All-binary
+    queries keep the ``(B, n_q)`` slot array; otherwise each query becomes
+    ``P(q = 0) = clip(1 - sum, 0, 1)`` and its slots, zero-padded to
+    ``max_k``, divided by ``max(sum, 1)`` -- the fill slots are independent
+    stochastic divisions whose sum can pass 1.
+    """
+    if all(c == 2 for c in q_cards):
+        return lambda slots: slots
+    kmax = max(q_cards)
+
+    def assemble(slots: torch.Tensor) -> torch.Tensor:
+        cols = []
+        off = 0
+        for c in q_cards:
+            v = slots[:, off : off + c - 1]
+            off += c - 1
+            s = v.sum(dim=-1, keepdim=True)
+            parts = [torch.clamp(1.0 - s, 0.0, 1.0), v]
+            if kmax > c:
+                parts.append(v.new_zeros(v.shape[:-1] + (kmax - c,)))
+            cols.append(torch.cat(parts, dim=-1) / torch.clamp(s, min=1.0))
+        return torch.stack(cols, dim=1)
+
+    return assemble
 
 
 def _count_assembler(q_cards: Tuple[int, ...]) -> Callable:
@@ -116,14 +163,16 @@ def posterior_argmax(post) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class CompiledNetwork:
-    """A network lowered to one fused sweep on one device.
+    """A network lowered to one fused sweep, or to one launch per node.
 
     ``run(key, ev_frames (B, n_ev)) -> (post, accepted (B,))`` and
     ``decide(key, ev_frames) -> (post, decisions (B, n_q), accepted)``.
     ``key`` is ``(2,)`` uint32 key data (:mod:`repro_torch.core.prng`);
     results are tensors on ``device``, returned without synchronising.
     ``accepted[b]`` is the number of stream positions that satisfied frame
-    ``b``'s evidence, the effective sample count.
+    ``b``'s evidence, the effective sample count.  ``plan`` is the fused
+    program's :class:`SweepPlan` (``None`` when unfused); ``tables`` holds the
+    unfused program's per-node tables on ``device`` (``None`` when fused).
     """
 
     spec: NetworkSpec
@@ -134,18 +183,23 @@ class CompiledNetwork:
     estimator: str
     fused: bool
     query_cards: Tuple[int, ...]
-    plan: SweepPlan = dataclasses.field(repr=False)
+    plan: SweepPlan | None = dataclasses.field(repr=False)
     device: torch.device
     n_shards: int = 1
     noise: NoiseModel | None = None
     drift_epochs: int = 1
     program: dict | None = dataclasses.field(default=None, repr=False, compare=False)
+    mux_mode: str = "gather"
+    tables: tuple | None = dataclasses.field(default=None, repr=False, compare=False)
 
     def _check_frames(self, ev_frames) -> torch.Tensor:
         if isinstance(ev_frames, torch.Tensor):
             ev = ev_frames.to(device=self.device, dtype=torch.int32)
         else:
-            ev = torch.from_numpy(np.asarray(ev_frames, np.int32)).to(self.device)
+            ev = torch.from_numpy(np.asarray(ev_frames, np.int32))
+            # pinned and non-blocking: a pageable upload would wait on the stream
+            ev = (ev.pin_memory().to(self.device, non_blocking=True)
+                  if self.device.type == "cuda" else ev)
         if ev.dim() != 2 or ev.shape[1] != len(self.evidence):
             raise ValueError(
                 f"evidence frames must be (B, {len(self.evidence)}), got {tuple(ev.shape)}"
@@ -156,21 +210,73 @@ class CompiledNetwork:
         return _count_assembler(self.query_cards)(numer, denom)
 
     def run(self, key, ev_frames) -> Tuple[torch.Tensor, torch.Tensor]:
-        numer, denom = net_sweep(key, self._check_frames(ev_frames),
-                                 plan=self.plan, n_bits=self.n_bits)
+        ev = self._check_frames(ev_frames)
+        if not self.fused:
+            return self._run_unfused(key, ev)
+        numer, denom = net_sweep(key, ev, plan=self.plan, n_bits=self.n_bits)
         return self._assemble(numer, denom), denom
 
     def decide(self, key, ev_frames) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Posteriors AND per-query MAP decisions in the same launch.
+        """Posteriors AND per-query MAP decisions.
 
-        The kernel argmaxes the per-query count slots itself, so the
-        sense->classify->act path is one launch; the decisions equal
-        :func:`posterior_argmax` of the posterior bit for bit.
+        The fused kernel argmaxes the per-query count slots itself, so the
+        sense->classify->act path is one launch; the unfused program takes
+        :func:`posterior_argmax` of its posterior.  Either way the decisions
+        equal :func:`posterior_argmax` of the posterior bit for bit.
         """
-        numer, denom, dec = net_sweep(key, self._check_frames(ev_frames),
-                                      plan=self.plan, n_bits=self.n_bits,
+        ev = self._check_frames(ev_frames)
+        if not self.fused:
+            post, denom = self._run_unfused(key, ev)
+            return post, posterior_argmax(post), denom
+        numer, denom, dec = net_sweep(key, ev, plan=self.plan, n_bits=self.n_bits,
                                       decide=True)
         return self._assemble(numer, denom), dec, denom
+
+    def _run_unfused(self, key, ev: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The per-node program: lower every node, condition, estimate."""
+        streams = _lower(self.tables, key, self.n_bits,
+                         None if self.share_entropy else ev.shape[0], self.mux_mode)
+        accept = _acceptance(ev, tuple(streams[e] for e in self.evidence), self.n_bits)
+        slots = _slot_indicators(streams, self.queries, self.query_cards)
+        denom = bitops.popcount(accept)
+        if self.estimator == "ratio":
+            numer = torch.stack([bitops.popcount(accept & s) for s in slots], dim=-1)
+            return self._assemble(numer, denom), denom
+        numer = torch.stack([torch.broadcast_to(s, accept.shape) for s in slots], dim=1)
+        _, post = cordiv.cordiv_fill(numer & accept[:, None, :], accept[:, None, :],
+                                     self.n_bits)
+        return _slot_assembler(self.query_cards)(post), denom
+
+
+def _slot_indicators(streams, queries, q_cards) -> tuple:
+    """Per-query per-value (1..k-1) indicator streams, in slot order."""
+    slots = []
+    for q, c in zip(queries, q_cards):
+        planes = streams[q]
+        if c == 2:
+            slots.append(planes[0])
+        else:
+            slots.extend(bitops.digit_indicator(planes, v) for v in range(1, c))
+    return tuple(slots)
+
+
+def _acceptance(ev: torch.Tensor, ev_planes, n_bits: int) -> torch.Tensor:
+    """(B, W) acceptance streams: the AND of every evidence value indicator.
+
+    ``ev_planes[i]`` holds evidence node ``i``'s value bit-planes, each
+    ``(W,)`` (shared entropy) or ``(B, W)``.  A plane enters as itself where
+    the frame's value has that bit set and as its pad-masked complement
+    where not.
+    """
+    mask = bitops.pad_mask(n_bits, device=ev.device)
+    accept = mask.expand(ev.shape[0], mask.shape[0])
+    zero = torch.zeros((), dtype=torch.int32, device=ev.device)
+    for i, planes in enumerate(ev_planes):
+        for bit, s in enumerate(planes):
+            s = s if s.dim() == 2 else s[None, :]
+            ebit = (ev[:, i : i + 1] >> bit) & 1
+            accept = accept & (s ^ torch.where(ebit == 1, zero, mask[None, :]))
+    return accept
 
 
 def sweep_plan(
@@ -224,6 +330,92 @@ def sweep_plan(
     )
 
 
+def _node_tables(spec: NetworkSpec, noise: NoiseModel | None, program: dict | None,
+                 dev: torch.device) -> tuple:
+    """The unfused program's per-node tables, uploaded to ``dev`` once.
+
+    One ``(name, parents, cards, table)`` per node in topological order:
+    ``table`` is the float32 ``(L,)`` CPT column ``P(node=1 | row)`` of a
+    binary node with binary parents (``L = 1`` for a root), else the int32
+    ``(L, k-1)`` cumulative DAC thresholds.  ``noise`` / ``program`` route
+    every node through the perturbed integer thresholds the fused plan bakes
+    in (:func:`~repro_torch.bayesnet.noise.perturbed_cdf_rows`); a binary
+    node feeds a threshold ``t`` back as the float32 ``t / 256``, which the
+    DAC rounding turns back into ``t`` exactly.
+    """
+    perturbed = (
+        perturbed_cdf_rows(spec, noise, program=program)
+        if noise is not None or program is not None else None
+    )
+    tables = []
+    for name in spec.topo_order():
+        node = spec.node(name)
+        cards = (spec.card(name),) + tuple(spec.card(pn) for pn in node.parents)
+        if all(c == 2 for c in cards):
+            if perturbed is not None:
+                probs = [r[0] / 256.0 for r in perturbed[name]]
+            else:
+                probs = [r[1] for r in spec.cpt_rows(name)]
+            table = torch.tensor(probs, dtype=torch.float32, device=dev)
+        else:
+            rows = perturbed[name] if perturbed is not None else tuple(
+                rng.cdf_thresholds_int(r) for r in spec.cpt_rows(name))
+            table = torch.tensor(rows, dtype=torch.int32, device=dev)
+        tables.append((name, tuple(node.parents), cards, table))
+    return tuple(tables)
+
+
+def _lower(tables: tuple, key, n_bits: int, batch: int | None, mux_mode: str) -> dict:
+    """Launch the per-node sweep over prebuilt :func:`_node_tables`.
+
+    Only launches: every table already lives on the device, so the host never
+    waits on the stream here.
+    """
+    lead = () if batch is None else (batch,)
+    streams = {}
+    for i, (name, parents, cards, table) in enumerate(tables):
+        sub = prng.fold_in(key, i)
+        dev = table.device
+        if table.dtype == torch.float32:
+            if not parents:
+                streams[name] = (sne_encode(sub, table[0].expand(lead), n_bits, device=dev),)
+                continue
+            par = torch.stack([streams[pn][0] for pn in parents])
+            streams[name] = (node_mux(sub, table.expand(lead + (-1,)), par, n_bits,
+                                      mode=mux_mode, device=dev),)
+            continue
+        planes = [pl for pn in parents for pl in streams[pn]]
+        par = (torch.stack(planes) if planes else
+               torch.empty((0,) + lead + (n_bits // 32,), dtype=torch.int32, device=dev))
+        out = node_mux_categorical(sub, table.expand(lead + (-1, -1)), par, cards=cards,
+                                   n_bits=n_bits, device=dev)
+        streams[name] = tuple(out.unbind(0))
+    return streams
+
+
+def lower_streams(
+    spec: NetworkSpec,
+    key,
+    n_bits: int,
+    batch: int | None = None,
+    *,
+    mux_mode: str = "gather",
+    noise: NoiseModel | None = None,
+    program: dict | None = None,
+    device="cuda",
+) -> dict:
+    """One topological sweep: name -> tuple of packed value bit-planes.
+
+    Every entry is a ``value_bits(k)``-tuple of ``(W,)`` (or ``(B, W)`` with
+    ``batch``) int32 words on ``device``.  Node ``i`` of the topological
+    order draws its entropy under ``fold_in(key, i)``, so nodes draw disjoint
+    counters while each parent's planes feed all its children.  ``noise`` /
+    ``program`` perturb the thresholds as :func:`_node_tables` says.
+    """
+    tables = _node_tables(spec, noise, program, backend.resolve_device(device))
+    return _lower(tables, key, n_bits, batch, mux_mode)
+
+
 def compile_network(
     spec: NetworkSpec,
     n_bits: int = 4096,
@@ -241,10 +433,14 @@ def compile_network(
     device="cuda",
     trace: Tracer | None = None,
 ) -> CompiledNetwork:
-    """Lower ``spec`` to a fused, frame-batched packed-stochastic program.
+    """Lower ``spec`` to a frame-batched packed-stochastic program.
 
+    ``fused=None`` picks the one-launch ``net_sweep`` program whenever it
+    applies (independent entropy, the ratio estimator, ``mux_mode='gather'``)
+    and the per-node unfused program otherwise; ``fused=False`` forces the
+    unfused program, the statistical baseline of the fused kernel.
     ``device`` (default ``"cuda"``) is where every launch runs: the CUDA
-    kernel on the card, or its plain torch version for ``device="cpu"``.
+    kernels on the card, or their plain torch versions for ``device="cpu"``.
     ``noise`` injects crossbar non-idealities at plan-build time, and
     ``drift_epochs`` / ``program`` shape the plan as in :func:`sweep_plan`.
     ``trace`` records the lowering as a ``compile_network`` span carrying
@@ -271,6 +467,11 @@ def compile_network(
         raise ValueError("n_bits must be a multiple of 32 (packed words)")
     if mux_mode not in ("gather", "rows"):
         raise ValueError(f"unknown mux_mode {mux_mode!r}")
+    if mux_mode == "rows" and spec.max_card() > 2:
+        raise ValueError(
+            "mux_mode='rows' (the binary row-encode baseline) does not "
+            "support k-ary nodes; use the default 'gather'"
+        )
     if noise is not None and not isinstance(noise, NoiseModel):
         raise TypeError(f"noise must be a NoiseModel or None, got {type(noise)!r}")
     drift_epochs = int(drift_epochs)
@@ -287,17 +488,36 @@ def compile_network(
         unknown = set(program) - set(spec.topo_order())
         if unknown:
             raise ValueError(f"program covers unknown nodes {sorted(unknown)}")
-    unfused = {
-        "fused=False": fused is False,
-        "share_entropy=True": share_entropy,
-        "estimator='fill'": estimator == "fill",
-        "mux_mode='rows'": mux_mode == "rows",
-    }
-    asked = [k for k, v in unfused.items() if v]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)} needs the unfused lowering, which the port "
-            f"does not have yet: {_UNFUSED_TODO}"
+    q_cards = tuple(spec.card(q) for q in queries)
+    # The fused sweep samples with threshold-gather by construction, so a
+    # non-default mux_mode is a request for the unfused per-node lowering.
+    fusable = not share_entropy and estimator == "ratio" and mux_mode == "gather"
+    if fused is None:
+        fused = fusable
+    elif fused and not fusable:
+        raise ValueError(
+            "fused lowering requires share_entropy=False, estimator='ratio' "
+            f"and mux_mode='gather' (got share_entropy={share_entropy}, "
+            f"estimator={estimator!r}, mux_mode={mux_mode!r})"
+        )
+    if devices is not None and int(devices) > 1 and not fused:
+        raise ValueError(
+            "devices= sharding requires the fused lowering: per-node unfused "
+            "programs draw batch-shaped entropy that is not bit-reproducible "
+            "across shard boundaries"
+        )
+    if drift_epochs > 1 and not fused:
+        raise ValueError(
+            "drift_epochs > 1 requires the fused lowering: the per-node "
+            "unfused encoders sample one threshold snapshot per stream"
+        )
+    if not fused:
+        return CompiledNetwork(
+            spec=spec, queries=queries, evidence=evidence, n_bits=n_bits,
+            share_entropy=share_entropy, estimator=estimator, fused=False,
+            query_cards=q_cards, plan=None, device=dev, noise=noise,
+            program=program, mux_mode=mux_mode,
+            tables=_node_tables(spec, noise, program, dev),
         )
     if devices is not None and int(devices) > 1:
         raise NotImplementedError(
@@ -308,6 +528,6 @@ def compile_network(
     return CompiledNetwork(
         spec=spec, queries=queries, evidence=evidence, n_bits=n_bits,
         share_entropy=False, estimator=estimator, fused=True,
-        query_cards=tuple(spec.card(q) for q in queries), plan=plan,
+        query_cards=q_cards, plan=plan,
         device=dev, noise=noise, drift_epochs=drift_epochs, program=program,
     )

@@ -41,12 +41,16 @@ def as_i32(values: torch.Tensor) -> torch.Tensor:
 
 
 def pad_mask(n_bits: int, device=None) -> torch.Tensor:
-    """(n_words,) int32 word mask with ones on valid bit positions."""
-    nw = n_words(n_bits)
+    """(n_words,) int32 word mask with ones on valid bit positions.
+
+    Built by fills on ``device``: no host-to-device copy, so building it
+    never waits on the stream.
+    """
     full, rem = divmod(n_bits, WORD)
-    vals = [MASK32] * full + ([(1 << rem) - 1] if rem else [])
-    vals += [0] * (nw - len(vals))
-    return as_i32(torch.tensor(vals, dtype=torch.int64, device=device))
+    mask = torch.full((n_words(n_bits),), -1, dtype=torch.int32, device=device)
+    if rem:
+        mask[full] = (1 << rem) - 1
+    return mask
 
 
 def popcount_words(words: torch.Tensor) -> torch.Tensor:
@@ -107,3 +111,48 @@ def digit_indicator(planes, d: int):
         lit = pl if (d >> b) & 1 else ~pl
         acc = lit if acc is None else acc & lit
     return acc
+
+
+# --- packing and the bitwise gates of the unfused lowering -------------------------
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Pack a (..., n) bool/int tensor into (..., ceil(n/32)) int32 words, LSB-first."""
+    n = bits.shape[-1]
+    nw = n_words(n)
+    b = bits.to(torch.int64)
+    pad = nw * WORD - n
+    if pad:
+        b = torch.cat([b, b.new_zeros(b.shape[:-1] + (pad,))], dim=-1)
+    b = b.reshape(b.shape[:-1] + (nw, WORD))
+    shifts = torch.arange(WORD, dtype=torch.int64, device=b.device)
+    return as_i32((b << shifts).sum(-1))
+
+
+def unpack_bits(words: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """Unpack (..., n_words) words into (..., n_bits) uint8 in {0, 1}."""
+    shifts = torch.arange(WORD, dtype=torch.int64, device=words.device)
+    bits = (as_u32(words)[..., None] >> shifts) & 1
+    flat = bits.reshape(words.shape[:-1] + (words.shape[-1] * WORD,))
+    return flat[..., :n_bits].to(torch.uint8)
+
+
+def decode(words: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """A packed stochastic number's probability estimate: float32 popcount / n_bits."""
+    # a tensor divisor: CUDA torch multiplies by a Python scalar's reciprocal
+    return popcount(words).to(torch.float32) / torch.full(
+        (), n_bits, dtype=torch.float32, device=words.device)
+
+
+def bnot(a: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """Bitwise NOT restricted to the valid bit positions (padding stays zero)."""
+    return ~a & pad_mask(n_bits, device=a.device)
+
+
+def bmux(select: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-bit 2:1 MUX: ``out_t = select_t ? b_t : a_t`` (the paper's weighted adder)."""
+    return (select & b) | (~select & a)
+
+
+def value_planes(levels):
+    """Nested ``value >= v`` indicators -> binary value bit-planes."""
+    return planes_from_buckets(nested_buckets(levels))

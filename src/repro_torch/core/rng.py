@@ -19,7 +19,9 @@ in the reference (``p = (2k+1)/512`` sits exactly on a half step).
 The paper's operators (``sne_encode``, ``bayes_decide``) draw *word* entropy
 instead: :func:`counter_hash_words` runs both lowbias32 rounds over the
 row-major counter of every entropy word, and each word gives 4 comparator
-bytes.  :func:`packed_from_bytes` is the comparator and packer of those words.
+bytes.  :func:`packed_from_bytes` is the comparator and packer of those words,
+and :func:`encode_packed` / :func:`encode_packed_categorical` the root
+encoders of the unfused lowering built on them.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.bitops import MASK32, as_i32, n_words
+from repro_torch.core.bitops import MASK32, as_i32, n_words, pad_mask, value_planes
 
 # Stream bits contributed by one 32-bit entropy word (one per byte).
 BITS_PER_RAND_WORD = 4
@@ -180,3 +182,45 @@ def packed_from_bytes(rand: torch.Tensor, thresh, flip=None) -> torch.Tensor:
         word = (grouped << (shifts + byte)).sum(-1)
         acc = word if acc is None else acc | word
     return as_i32(acc)
+
+
+# --- the unfused lowering's root encoders ---------------------------------------
+
+def _mask_tail(words: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """Zero the pad bits when n_bits is not word-aligned (popcount invariant)."""
+    if n_bits % 32:
+        return words & pad_mask(n_bits, device=words.device)
+    return words
+
+
+def random_words(key, shape: tuple, n_bits: int, *, device=None) -> torch.Tensor:
+    """``shape + (n_rand,)`` counter-hash entropy words for ``n_bits``-bit
+    streams (int64): the reference's ``impl='fast'`` generator."""
+    return counter_hash_words(key, tuple(shape), n_rand_words(n_bits), device=device)
+
+
+def encode_packed(key, p, n_bits: int) -> torch.Tensor:
+    """Independent packed Bernoulli streams: ``p.shape + (n_words,)`` int32.
+
+    Runs on ``p``'s device.  Entry ``i`` of the flattened ``p`` draws the
+    counters ``i * n_rand ..``, as the ``sne_encode`` kernel does.
+    """
+    p = torch.as_tensor(p, dtype=torch.float32)
+    rand = random_words(key, tuple(p.shape), n_bits, device=p.device)
+    return _mask_tail(packed_from_bytes(rand, threshold_from_p(p)), n_bits)
+
+
+def encode_packed_categorical(key, cdf: tuple, n_bits: int, batch: int | None = None, *,
+                              device=None) -> torch.Tensor:
+    """Categorical root sampling: one entropy byte -> ``value_bits(k)`` planes.
+
+    cdf: ``(k-1,)`` non-increasing cumulative thresholds in [0, 256]
+    (:func:`cdf_thresholds_int`).  Draws the entropy a binary
+    :func:`encode_packed` of the same shape draws and compares each byte with
+    every threshold.  Returns ``(value_bits(k), n_words)`` int32, or
+    ``(value_bits(k), batch, n_words)`` when ``batch`` is given.
+    """
+    lead = () if batch is None else (batch,)
+    rand = random_words(key, lead, n_bits, device=device)
+    levels = [packed_from_bytes(rand, int(t)) for t in cdf]
+    return torch.stack([_mask_tail(pl, n_bits) for pl in value_planes(levels)])
