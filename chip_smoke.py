@@ -6,24 +6,39 @@
 Phases (any failure makes the script exit non-zero without the result line):
 
 1. device  -- the card's name, power limit and max SM clock (``nvidia-smi``).
-2. build   -- ``nvcc`` builds every kernel of the main path from ``src/``
-              and prints ``-Xptxas -v`` (registers, spills).
-3. kernels -- each kernel against its plain torch version on the card, bit
-              for bit: ``net_sweep`` on all 7 scenarios at n_bits=4096,
-              B=1024, decide off and on; nominal noise with 3 drift epochs;
-              a frame0/total_frames slice whose counters wrap 2**32; and
-              n_bits=128.
+2. build   -- ``nvcc`` builds, all started together, every kernel library of
+              the paths from ``src/`` -- the operator and node_mux sources and
+              one generated ``net_sweep`` program per plan the run launches
+              (``kernels/net_sweep/codegen.py``) -- and prints ``-Xptxas -v``
+              (registers, spills), the nvcc seconds of each program and its
+              integer instructions in ``cuobjdump -sass``.
+3. kernels -- each generated ``net_sweep`` against its plain torch version on
+              the card, bit for bit: all 7 scenarios at n_bits=4096, B=1024,
+              decide off and on; nominal noise with 3 drift epochs; a
+              frame0/total_frames slice whose counters wrap 2**32; n_bits=128;
+              and the wide network (a 7-parent binary node and a 9-plane
+              k-ary node).
 4. main    -- the port's main path through its entry points: per scenario
               ``compile_network(spec, n_bits=4096, device="cuda")`` and a
               ``FrameDriver(max_batch=256)`` draining 4096 seeded frames in
               sync and in async mode, held per rid against a driver whose
               network was built on the plain version (``device="cpu"``);
               ``decide`` on the card against ``decide`` on the CPU.  Launch
-              counts are reset just before and read just after.
-5. timing  -- CUDA-event times per launch for each kernel and its plain
-              version, frames per second of the async drain, single-frame
-              ``decide`` latency p50/p99 at n_bits 128 and 4096.
-6. operators -- the paper's fusion operators.  Each of ``sne_encode``,
+              counts are reset just before and read just after, and no
+              ``net_sweep`` program is built in between.
+5. timing  -- ``net_sweep`` per scenario at B=1024 and at B=256 (the drain's
+              bucket): device time per launch (``torch.profiler``) and time per
+              back-to-back call (CUDA events, which the host's launch cost sets
+              once the kernel is shorter), beside the integer-work bound (the
+              gate program's LOP3-aware count, or the SASS count where that
+              is lower, with logic, shifts and compares on the 64 ALU lanes
+              of an SM and multiplies and adds free to use all 128); frames per
+              second of the async drain; single-frame ``decide`` latency
+              p50/p99 at n_bits 128 and 4096.
+6. drain_trace -- ``torch.profiler`` over one async drain (intersection, 4096
+              frames, max_batch=256): the device's busy share of the window
+              and kernel time by name.
+7. operators -- the paper's fusion operators.  Each of ``sne_encode``,
               ``pand_popcount``, ``bayes_decide`` and ``fusion_map`` against
               its plain torch version on the card (bit for bit; fusion_map
               within atol 2e-6, rtol 1e-5) at M 1..3, K 2 and 16, row counts
@@ -38,16 +53,19 @@ Phases (any failure makes the script exit non-zero without the result line):
               decision (4096 decisions, M=K=2, 128 bits: fused, composed,
               ``bayes_decide_packed``); and the ``obstacle_fusion`` example
               flow at 64x64.
-7. operator_timing -- CUDA-event times per launch of the four kernels at the
+8. operator_timing -- CUDA-event times per launch of the four kernels at the
               full batch and at a 65,536-pixel slice of it, beside their plain
               versions (slice only: the plain versions do not fit at full
               size), their bounds, and the composed torch expression for
               ``fusion_map``.
-8. unfused_kernels -- the three ``node_mux`` kernels (gather, rows, cat)
-              against their plain versions on the card, bit for bit, at 1 to
-              3 parents (6 for gather and rows), k-ary nodes with mixed parent
-              cards and with no parents, and counter origins that wrap 2**32.
-9. unfused_path -- the unfused lowering through its entry points at
+9. unfused_kernels -- the ``node_mux`` kernels against their plain versions
+              on the card, bit for bit: gather and rows at 0 to 6 parents and
+              at 7 and 8 (the gather on the categorical kernel at k = 2, rows
+              on its wide kernel), the categorical pattern-table
+              kernel at 0 to 4 parent planes (per-row and shared tables) and
+              its wide path at 9 planes and at 17 parents, k-ary roots, and
+              counter origins that wrap 2**32.
+10. unfused_path -- the unfused lowering through its entry points at
               n_bits=4096, B=1024, counts reset just before and read just
               after: 7 scenarios x {``fused=False``, ``share_entropy=True``},
               ``mux_mode='rows'`` on the 4 binary scenarios and
@@ -58,11 +76,16 @@ Phases (any failure makes the script exit non-zero without the result line):
               Then the unfused, shared-entropy and fused posteriors against the
               enumeration oracle: per distinct evidence vector, the posterior
               pooled over its frames within 4.5 sqrt(p (1-p) / accepted).
-10. unfused_timing -- CUDA-event times per launch of the three kernels at
-              B=1024 and B=65,536 (n_bits=4096) beside their plain versions
-              and bounds; launches of each kernel per unfused ``run`` of each
-              scenario; wall time per 1024-frame batch of the unfused, shared
-              and fused programs.
+11. wide_path -- the wide network through ``compile_network`` fused,
+              ``fused=False``, ``share_entropy=True`` and ``mux_mode='rows'`` at
+              n_bits=4096, B=1024, each ``decide`` bit-equal to
+              ``device="cpu"``; counts reset just before and read just after,
+              and each wide kernel must have launched.
+12. unfused_timing -- device time per launch and per back-to-back call of the
+              node_mux kernels at B=1024 and B=65,536 (n_bits=4096; the wide
+              paths at B=256) beside their plain versions and bounds; launches of each kernel per
+              unfused ``run`` of each scenario; wall time per 1024-frame batch
+              of the unfused, shared and fused programs.
 
 Before the last line it prints the ``nvidia-smi`` name/power-limit line and a
 ``{"kernels": [...]}`` JSON line; the last line is
@@ -72,9 +95,11 @@ Before the last line it prints the ``nvidia-smi`` name/power-limit line and a
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -82,10 +107,12 @@ import traceback
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tests"))       # torch_wide_net: the wide network
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import repro_torch.bayesnet as tbn  # noqa: E402
 from repro_torch.bayesnet import analytic  # noqa: E402
 from repro_torch.bayesnet import (  # noqa: E402
     SCENARIOS,
@@ -115,7 +142,9 @@ from repro_torch.kernels.net_sweep import kernel as net_sweep_kernel  # noqa: E4
 from repro_torch.kernels.net_sweep import record_program, sweep_tile  # noqa: E402
 from repro_torch.kernels.node_mux import kernel as nm_kernel  # noqa: E402
 from repro_torch.kernels.node_mux.ref import (  # noqa: E402
+    binary_cat_table,
     cat_gather_body,
+    cat_table,
     node_mux_gather_ref,
     node_mux_ref,
 )
@@ -124,12 +153,22 @@ from repro_torch.kernels.pand_popcount.ref import pand_popcount_ref  # noqa: E40
 from repro_torch.kernels.sne_encode import kernel as sne_kernel  # noqa: E402
 from repro_torch.kernels.sne_encode.ref import sne_encode_ref  # noqa: E402
 from repro_torch.obs import PAPER_BUDGET_MS  # noqa: E402
+from torch_wide_net import wide_spec  # noqa: E402
 
 NAMES = sorted(SCENARIOS)
 N_BITS, BATCH = 4096, 1024            # compile_network's default width, the README's batch
 DRAIN_FRAMES, MAX_BATCH = 4096, 256
 KD = (0x9E3779B9, 0x7F4A7C15)
-INT32_LANES_PER_SM = 64               # Hopper SM, per clock (NVIDIA H100 white paper)
+# Hopper SM, per clock (NVIDIA H100 white paper): 4 sub-partitions, each
+# with 16 INT32 lanes and one 32-lane warp instruction dispatched per clock;
+# integer multiplies and adds may also run on the FP32/FMA pipe.
+INT32_LANES_PER_SM = 64
+DISPATCH_LANES_PER_SM = 128
+# SASS opcodes of integer work: only the ALU runs the first set, the FMA pipe
+# may also take the second
+SASS_ALU = {"LOP3", "LOP", "SHF", "SHL", "SHR", "ISETP", "SEL", "POPC", "PRMT", "FLO",
+            "BREV", "BMSK", "IMNMX", "IABS"}
+SASS_MULADD = {"IMAD", "IADD3", "IADD", "LEA", "VIADD", "IMUL"}
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM HBM3 (NVIDIA data sheet)
 TIMED_SCENARIO = "intersection"       # the largest network: the kernels line's numbers
 F32_FLOPS_PER_S = 67e12               # H100 SXM float32 outside the tensor cores (data sheet)
@@ -151,10 +190,9 @@ UNFUSED_DRAIN = 1024                  # frames per unfused driver drain
 # the unfused path's programs: mode -> compile_network keywords
 UNFUSED_MODES = {"unfused": dict(fused=False), "shared": dict(share_entropy=True),
                  "rows": dict(mux_mode="rows"), "fill": dict(estimator="fill")}
-KERNEL_MODULES = {
-    "net_sweep": net_sweep_kernel, "sne_encode": sne_kernel,
-    "pand_popcount": pp_kernel, "bayes_decide": bd_kernel, "fusion_map": fm_kernel,
-    "node_mux": nm_kernel,
+LIBRARIES = {   # kernel sources built as they are; net_sweep is built per program
+    "sne_encode": sne_kernel, "pand_popcount": pp_kernel, "bayes_decide": bd_kernel,
+    "fusion_map": fm_kernel, "node_mux": nm_kernel,
 }
 LAUNCHERS = {
     "net_sweep": net_sweep_kernel.net_sweep_cuda, "sne_encode": sne_kernel.sne_encode_cuda,
@@ -163,6 +201,8 @@ LAUNCHERS = {
     "node_mux_gather": nm_kernel.node_mux_gather_cuda,
     "node_mux_rows": nm_kernel.node_mux_rows_cuda,
     "node_mux_cat": nm_kernel.node_mux_cat_cuda,
+    "node_mux_rows_wide": nm_kernel.node_mux_rows_wide_cuda,
+    "node_mux_cat_wide": nm_kernel.node_mux_cat_wide_cuda,
 }
 REPLACES = {
     "net_sweep": "src/repro/kernels/net_sweep/kernel.py:38",
@@ -173,7 +213,37 @@ REPLACES = {
     "node_mux_gather": "src/repro/kernels/node_mux/kernel.py:63",
     "node_mux_rows": "src/repro/kernels/node_mux/kernel.py:37",
     "node_mux_cat": "src/repro/kernels/node_mux/kernel.py:86",
+    "node_mux_rows_wide": "src/repro/kernels/node_mux/kernel.py:37",
+    "node_mux_cat_wide": "src/repro/kernels/node_mux/kernel.py:86",
 }
+WIDE_KERNELS = ("node_mux_rows_wide", "node_mux_cat_wide")
+WIDE_BATCH = 256                      # rows of the wide kernels' timing (their plain versions fit)
+NOISY = ("intersection", "intersection-cat")   # the drift-epoch checks: nominal noise, 3 epochs
+
+
+def _spec(name):
+    return wide_spec(tbn, 7, n_cls=9) if name.startswith("wide") else by_name(name)
+
+
+def _sass_ops(library):
+    """(ALU-only, multiply/add) integer instructions in the SASS of the
+    ``net_sweep_kernel`` of one built library (``cuobjdump -sass``): the
+    static count of a straight-line body that runs once per item, with the
+    item loop and the count epilogue around it."""
+    tool = pathlib.Path(backend.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    ops, inside = collections.Counter(), False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = "net_sweep_kernel" in line
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if inside and m:
+            ops[m.group(1)] += 1
+    if not ops:
+        raise AssertionError(f"no net_sweep_kernel SASS in {library}")
+    return (sum(ops[k] for k in SASS_ALU), sum(ops[k] for k in SASS_MULADD))
 
 
 def _reset_launches():
@@ -200,7 +270,7 @@ def _evidence(spec, b, seed):
 
 
 def _plan(name, noise=None, epochs=1):
-    spec = by_name(name)
+    spec = _spec(name)
     return sweep_plan(spec, spec.queries, spec.evidence, noise=noise, drift_epochs=epochs)
 
 
@@ -214,6 +284,27 @@ def _event_ms(fn, reps, warmup=2):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _device_ms(fn, reps=50, warmup=2):
+    """Device time per call: the summed durations of the kernels and copies
+    ``fn`` puts on the card, from torch.profiler's CUDA activity.  Unlike
+    :func:`_event_ms` it leaves out the host's cost of a launch, which sets
+    back-to-back event times once a kernel is shorter than its launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return us / reps / 1e3
 
 
 def _entropy(key, shape, n_bits, offset):
@@ -256,18 +347,17 @@ def _rand_words(gen, shape):
                                        dtype=torch.int64))
 
 
-def _node_table(name, node, b):
-    """(table, parent cards, card) of one scenario node, broadcast over ``b`` rows:
-    float32 CPT rows (R, L) for an all-binary node, int32 CDF rows (R, L, k-1) else."""
-    spec = by_name(name)
+def _node_table(name, node):
+    """(table, parent cards, card) of one node, one table for every row: the
+    float32 CPT column (L,) of an all-binary node, else int32 CDF rows (L, k-1)."""
+    spec = _spec(name)
     rows = spec.cpt_rows(node)
     card, pcards = spec.card(node), tuple(spec.card(p) for p in spec.node(node).parents)
     if card == 2 and all(c == 2 for c in pcards):
-        table = torch.tensor([r[1] for r in rows], dtype=torch.float32, device="cuda")
-        return table.expand(b, -1).contiguous(), pcards, card
-    table = torch.tensor([rng.cdf_thresholds_int(r) for r in rows], dtype=torch.int32,
-                         device="cuda")
-    return table.expand(b, -1, -1).contiguous(), pcards, card
+        return (torch.tensor([r[1] for r in rows], dtype=torch.float32, device="cuda"),
+                pcards, card)
+    return (torch.tensor([rng.cdf_thresholds_int(r) for r in rows], dtype=torch.int32,
+                         device="cuda"), pcards, card)
 
 
 def _selected_leaf_words(parents):
@@ -293,22 +383,30 @@ def _selected_leaf_words(parents):
     return total
 
 
-def _nm_calls(name, kd, table, parents, cards, b, n_leaves):
-    """(kernel, plain version) of one node_mux launch as zero-argument calls."""
-    n_rand_shape = (b, n_leaves) if name == "node_mux_rows" else (b,)
+def _nm_calls(name, kd, table, parents, cards, b):
+    """(kernel, plain version) of one node_mux launch as zero-argument calls.
+
+    The kernel gets the node's one table with row stride 0, as a compiled
+    network passes it (the categorical table folded once, beforehand); the
+    plain version gets the same table broadcast over the ``b`` rows.
+    """
+    rows_mode = name.startswith("node_mux_rows")
+    n_rand_shape = (b, table.shape[0]) if rows_mode else (b,)
+    rows = table.expand((b,) + tuple(table.shape))
 
     def entropy():
         return _entropy(NM_KEY, n_rand_shape, N_BITS, 0)
 
-    if name == "node_mux_cat":
-        return (lambda: nm_kernel.node_mux_cat_cuda(*kd, table, parents, cards=cards,
+    if name.startswith("node_mux_cat"):
+        folded = cat_table(table, cards)
+        return (lambda: nm_kernel.node_mux_cat_cuda(*kd, folded, parents, cards=cards,
                                                     n_bits=N_BITS),
-                lambda: cat_gather_body(table, entropy(), parents, cards))
-    if name == "node_mux_gather":
-        return (lambda: nm_kernel.node_mux_gather_cuda(*kd, table, parents, n_bits=N_BITS),
-                lambda: node_mux_gather_ref(table, entropy(), parents))
-    return (lambda: nm_kernel.node_mux_rows_cuda(*kd, table, parents, n_bits=N_BITS),
-            lambda: node_mux_ref(table, entropy(), parents))
+                lambda: cat_gather_body(rows, entropy(), parents, cards))
+    if rows_mode:
+        return (lambda: nm_kernel.node_mux_rows_cuda(*kd, rows, parents, n_bits=N_BITS),
+                lambda: node_mux_ref(rows, entropy(), parents))
+    return (lambda: nm_kernel.node_mux_gather_cuda(*kd, rows, parents, n_bits=N_BITS),
+            lambda: node_mux_gather_ref(rows, entropy(), parents))
 
 
 def _pooled_z(ev, post, acc, exact, shared):
@@ -396,30 +494,58 @@ class Smoke:
             "int32_ops_per_s": self.int32_ops_per_s,
         }
 
+    def _kernel_cases(self):
+        """(name, noise, epochs, n_bits, B, frame0, total) of the kernels phase."""
+        cases = [(n, None, 1, N_BITS, BATCH, 0, None) for n in NAMES]
+        cases += [(n, NoiseModel.nominal(), 3, N_BITS, BATCH, 0, None) for n in NOISY]
+        cases += [("intersection-cat", None, 1, N_BITS, BATCH, 2**27 + 5, 2**28)]
+        cases += [(n, None, 1, 128, BATCH, 0, None) for n in NAMES]
+        cases += [("wide", None, 1, N_BITS, BATCH, 0, None)]
+        return cases
+
     def build(self):
-        """One nvcc per kernel source, all started together."""
+        """One nvcc per kernel source and per net_sweep program, all started together."""
+        plans = {_plan(n, noise, ep) for n, noise, ep, *_ in self._kernel_cases()}
         t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(len(KERNEL_MODULES)) as pool:
-            built = dict(zip(KERNEL_MODULES, pool.map(
-                lambda mod: backend.build_library(mod.SOURCE), KERNEL_MODULES.values())))
-        print(f"built {len(built)} kernel libraries in {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES) + len(plans)) as pool:
+            libs = {name: pool.submit(backend.build_library, mod.SOURCE)
+                    for name, mod in LIBRARIES.items()}
+            progs = pool.submit(net_sweep_kernel.prepare, sorted(plans, key=repr))
+            built = {name: f.result() for name, f in libs.items()}
+            progs.result()
+        wall = time.perf_counter() - t0
         for name, (path, log) in built.items():
             print(f"{path.name}:\n{log.strip()}", flush=True)
-            KERNEL_MODULES[name].library()
+            LIBRARIES[name].library()
+        programs = dict(net_sweep_kernel.BUILDS)
+        self.sass = {}
+        for info in programs.values():
+            regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
+            try:
+                self.sass[info["source"]] = _sass_ops(info["library"])
+                sass = "SASS integer instructions {} ALU + {} multiply/add".format(
+                    *self.sass[info["source"]])
+            except (OSError, subprocess.SubprocessError, AssertionError) as e:
+                sass = f"SASS not counted ({type(e).__name__}: {e})"
+            print(f"{info['source']}: nvcc {info['seconds']:.2f} s; {' '.join(regs)}; {sass}",
+                  flush=True)
+        secs = [info["seconds"] for info in programs.values()]
+        print(f"built {len(built)} kernel libraries and {len(programs)} net_sweep programs "
+              f"(for {len(plans)} plans) in {wall:.1f} s; nvcc per program "
+              f"{min(secs):.2f}-{max(secs):.2f} s", flush=True)
         self.report["build_log"] = {name: log for name, (_, log) in built.items()}
+        self.report["net_sweep_programs"] = {
+            info["source"]: {"nvcc_s": info["seconds"], "log": info["log"],
+                             "sass_alu_muladd": self.sass.get(info["source"])}
+            for info in programs.values()}
+        self.report["build_wall_s"] = wall
 
     def kernels(self):
         self.max_err = 0
-        cases = [(n, None, 1, N_BITS, BATCH, 0, None) for n in NAMES]
-        cases += [(n, NoiseModel.nominal(), 3, N_BITS, BATCH, 0, None)
-                  for n in ("intersection", "intersection-cat")]
-        cases += [("intersection-cat", None, 1, N_BITS, BATCH, 2**27 + 5, 2**28)]
-        cases += [(n, None, 1, 128, BATCH, 0, None) for n in NAMES]
         checked = 0
-        for name, noise, epochs, n_bits, b, frame0, total in cases:
+        for name, noise, epochs, n_bits, b, frame0, total in self._kernel_cases():
             plan = _plan(name, noise, epochs)
-            ev = torch.from_numpy(_evidence(by_name(name), b, seed=n_bits + epochs)).cuda()
+            ev = torch.from_numpy(_evidence(_spec(name), b, seed=n_bits + epochs)).cuda()
             w = n_bits // 32
             for decide in (False, True):
                 got = net_sweep_kernel.net_sweep_cuda(
@@ -437,8 +563,8 @@ class Smoke:
                             f"n_bits={n_bits} epochs={epochs} frame0={frame0} "
                             f"decide={decide} max abs err {err}")
                 checked += 1
-        print(f"net_sweep: {checked} launches bit-equal to the plain version "
-              f"(max abs err {self.max_err}; tolerance 0: integer counts and "
+        print(f"net_sweep: {checked} launches of the generated programs bit-equal to the "
+              f"plain version (max abs err {self.max_err}; tolerance 0: integer counts and "
               f"decisions must match exactly)", flush=True)
 
     def main_path(self):
@@ -451,6 +577,7 @@ class Smoke:
             d.submit(frames[n])
             refs[n] = (d.drain(), plain[n].decide(prng.PRNGKey(5), frames[n][:BATCH]))
         torch.cuda.synchronize()
+        builds = net_sweep_kernel.net_sweep_cuda.builds
         _reset_launches()                                      # the main path starts
         outs = {}
         for i, n in enumerate(NAMES):
@@ -465,6 +592,9 @@ class Smoke:
         self.launches = counts["net_sweep"]
         if self.launches <= 0:
             raise AssertionError("the main path launched the net_sweep kernel 0 times")
+        if net_sweep_kernel.net_sweep_cuda.builds != builds:
+            raise AssertionError("a net_sweep program was built during the main path: "
+                                 "compile_network must build it")
         for n in NAMES:
             (ref, (rpost, rdec, racc)) = refs[n]
             sync, asyn, (post, dec, acc) = outs[n]
@@ -500,31 +630,51 @@ class Smoke:
 
     def timing(self):
         rows = {}
+        w = N_BITS // 32
         for n in NAMES:
             spec = by_name(n)
             plan = _plan(n)
-            ev = torch.from_numpy(_evidence(spec, BATCH, seed=7)).cuda()
-            w = N_BITS // 32
-            ms = _event_ms(lambda: net_sweep_kernel.net_sweep_cuda(
-                *KD, ev, plan=plan, n_bits=N_BITS), reps=50)
-            plain_ms = _event_ms(lambda: sweep_tile(plan, *KD, ev, 0, 0, BATCH, w, w, BATCH),
-                                 reps=3, warmup=1)
-            prog = record_program(plan, w)
-            ops = prog.int_ops_per_word * BATCH * w
-            op_ms = ops / self.int32_ops_per_s * 1e3
-            nbytes = ev.numel() * 4 + BATCH * prog.n_out * 4 + prog.code.nbytes
-            byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            rows[n] = {
-                "ms": ms, "plain_ms": plain_ms, "int_ops": ops,
-                "int_ops_per_word": prog.int_ops_per_word, "instructions": len(prog.code),
-                "slots": prog.n_slots, "bytes": nbytes,
-                "bound_ms": max(op_ms, byte_ms),
-                "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-            }
-            self.say(f"net_sweep {n}: B={BATCH} n_bits={N_BITS}: kernel {ms:.4f} ms/launch, "
-                     f"plain {plain_ms:.3f} ms, bound {rows[n]['bound_ms']:.4f} ms "
-                     f"({prog.int_ops_per_word} int ops/word, {len(prog.code)} gates, "
-                     f"{prog.n_slots} slots)")
+            prog = record_program(plan)
+            sass = self.sass.get(f"net_sweep_{net_sweep_kernel.program_key(plan)}.cu")
+            # the least work per item: the gate program's LOP3-aware count, or
+            # the built kernel's SASS where ptxas needed fewer instructions
+            alu, total = prog.alu_ops_per_word, prog.int_ops_per_word
+            if sass is not None:
+                alu, total = min(alu, sass[0]), min(total, sum(sass))
+            rows[n] = {"int_ops_per_word": prog.int_ops_per_word,
+                       "alu_ops_per_word": prog.alu_ops_per_word, "sass_alu_muladd": sass,
+                       "bound_ops_per_word": total, "bound_alu_ops_per_word": alu,
+                       "gates": len(prog.code), "live_words": prog.n_slots}
+            for b in (BATCH, MAX_BATCH):
+                ev = torch.from_numpy(_evidence(spec, b, seed=7)).cuda()
+
+                def launch():
+                    return net_sweep_kernel.net_sweep_cuda(*KD, ev, plan=plan, n_bits=N_BITS)
+
+                ms, call_ms = _device_ms(launch), _event_ms(launch, reps=50)
+                items = b * w
+                clocks = items * max(alu / INT32_LANES_PER_SM, total / DISPATCH_LANES_PER_SM)
+                op_ms = clocks / (self.n_sm * self.max_clock_mhz * 1e6) * 1e3
+                nbytes = ev.numel() * 4 + b * prog.n_out * 4
+                byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                bound = max(op_ms, byte_ms)
+                row = {"ms": ms, "call_ms": call_ms, "int_ops": total * items,
+                       "alu_ops": alu * items, "bytes": nbytes, "bound_ms": bound,
+                       "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+                       "x_bound": ms / bound}
+                if b == BATCH:
+                    row["plain_ms"] = _event_ms(
+                        lambda: sweep_tile(plan, *KD, ev, 0, 0, b, w, w, b), reps=3, warmup=1)
+                rows[n][b] = row
+                plain = f", plain {row['plain_ms']:.3f} ms" if "plain_ms" in row else ""
+                sass_txt = "SASS not counted" if sass is None else \
+                    f"SASS {sass[0]} ALU + {sass[1]} multiply/add"
+                self.say(f"net_sweep {n}: B={b} n_bits={N_BITS}: kernel {ms:.4f} ms/launch "
+                         f"on the device, {call_ms:.4f} ms per back-to-back call{plain}, "
+                         f"bound {bound:.4f} ms ({ms / bound:.2f}x; per word {total} int ops, "
+                         f"{alu} on the ALU alone; program {prog.int_ops_per_word} / "
+                         f"{prog.alu_ops_per_word}, {sass_txt}; {len(prog.code)} gates, "
+                         f"{prog.n_slots} live words)")
         self.report["net_sweep"] = rows
         fps, lat = {}, {}
         for i, n in enumerate(NAMES):
@@ -560,6 +710,56 @@ class Smoke:
                          f"p99 {p99:.4f} ms (paper budget {PAPER_BUDGET_MS} ms)")
         self.report["frames_per_s"] = fps
         self.report["decide_latency_ms"] = lat
+
+    def drain_trace(self):
+        """One async drain under torch.profiler: device busy share, kernel time by name."""
+        from torch.profiler import ProfilerActivity, profile
+
+        net = compile_network(by_name(TIMED_SCENARIO), n_bits=N_BITS, device="cuda")
+        frames = _evidence(by_name(TIMED_SCENARIO), DRAIN_FRAMES, seed=23)
+        warm = FrameDriver(net, max_batch=MAX_BATCH, salt=600)
+        warm.submit(frames)
+        warm.drain_async()
+        d = FrameDriver(net, max_batch=MAX_BATCH, salt=601)
+        d.submit(frames)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = d.drain_async()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        assert len(out) == DRAIN_FRAMES
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy, end = 0.0, float("-inf")
+        for a, b in spans:                 # the union of the device's intervals
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        by_name_us = {}
+        for e in prof.key_averages():
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "self_cuda_time_total", 0.0)
+            if dev_us:
+                by_name_us[e.key] = dev_us
+        top = sorted(by_name_us.items(), key=lambda kv: -kv[1])[:8]
+        trace_path = ROOT / "chiprun_out" / "drain_trace.json"
+        trace_path.parent.mkdir(exist_ok=True)
+        prof.export_chrome_trace(str(trace_path))
+        if not spans:
+            raise AssertionError("torch.profiler recorded no device activity in the drain")
+        self.say(f"drain trace ({TIMED_SCENARIO}, {DRAIN_FRAMES} frames, max_batch={MAX_BATCH}, "
+                 f"torch.profiler): wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+                 f"({busy / wall_us * 100:.1f}% of the window, the union of {len(spans)} device "
+                 f"intervals); device time by name: "
+                 + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+        self.report["drain_trace"] = {
+            "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "busy_share": busy / wall_us, "device_intervals": len(spans),
+            "device_ms_by_name": {k: v / 1e3 for k, v in by_name_us.items()},
+            "trace": str(trace_path.relative_to(ROOT)),
+        }
 
     # ------------------------------------------------------------ operators
     def operators(self):
@@ -785,7 +985,7 @@ class Smoke:
 
     def unfused_kernels(self):
         """Each node_mux kernel against its plain version on the same inputs, on the card."""
-        self.nm_err = {name: 0 for name in NM_KERNELS}
+        self.nm_err = {name: 0 for name in NM_KERNELS + WIDE_KERNELS}
         gen = torch.Generator(device="cuda").manual_seed(31)
         kd = rng.seed_words(NM_KEY)
         half_steps = (2 * torch.arange(8, device="cuda") + 1) / 512
@@ -803,24 +1003,47 @@ class Smoke:
             self._nm_note("node_mux_rows",
                           nm_kernel.node_mux_rows_cuda(*kd, cpt, par, n_bits=n_bits, offset=off),
                           node_mux_ref(cpt, _entropy(NM_KEY, (rows, 1 << m), n_bits, off), par))
+        # the wide paths: 7 and 8 binary parents (the gather on the pattern-table
+        # kernel at k = 2, rows; shared CPT rows too)
+        for m, rows, n_bits, off in ((7, 300, 256, NM_WRAP), (8, 64, N_BITS, 0)):
+            cpt = torch.rand((rows, 1 << m), generator=gen, device="cuda")
+            cpt.view(-1)[:8] = half_steps
+            par = _rand_words(gen, (m, rows, n_bits // 32))
+            for table in (cpt, cpt[:1].expand(rows, -1)):
+                self._nm_note("node_mux_cat",
+                              nm_kernel.node_mux_gather_cuda(*kd, table, par, n_bits=n_bits,
+                                                             offset=off),
+                              node_mux_gather_ref(table, _entropy(NM_KEY, (rows,), n_bits, off),
+                                                  par))
+            self._nm_note("node_mux_rows_wide",
+                          nm_kernel.node_mux_rows_cuda(*kd, cpt, par, n_bits=n_bits, offset=off),
+                          node_mux_ref(cpt, _entropy(NM_KEY, (rows, 1 << m), n_bits, off), par))
         # (cards, rows, n_bits, counter origin): obstacle-class's rgb_class, k-ary
-        # roots (no parents), parents of card 3 (their planes spell digit 3)
+        # roots (no parents), parents of card 3 (their planes spell digit 3), then
+        # the wide path: 9 planes (above the pattern table's 8) and 17 parents
         cat = [((4, 4, 2), BATCH, N_BITS, 0), ((3,), BATCH, N_BITS, NM_WRAP), ((4,), 257, 128, 0),
                ((3, 3, 2), 1000, N_BITS, NM_WRAP), ((2, 3, 2, 2), BATCH, 256, 0),
-               ((5, 2, 2, 2, 2), 300, 256, NM_WRAP)]
+               ((5, 2, 2, 2, 2), 300, 256, NM_WRAP), ((3,) + (2,) * 9, 64, 256, NM_WRAP),
+               ((3, 4, 3) + (2,) * 5, 32, 128, 0), ((3,) + (2,) * 17, 8, 64, NM_WRAP)]
         for cards, rows, n_bits, off in cat:
             k, pcards = cards[0], cards[1:]
             n_leaves = int(np.prod(pcards)) if pcards else 1
+            planes = sum(bitops.value_bits(c) for c in pcards)
+            name = "node_mux_cat_wide" if planes > 8 else "node_mux_cat"
             levels = torch.randint(0, 257, (rows, n_leaves, k - 1), generator=gen, device="cuda")
             cdf = torch.sort(levels, dim=-1, descending=True).values.to(torch.int32)
-            par = _rand_words(gen, (sum(bitops.value_bits(c) for c in pcards), rows, n_bits // 32))
-            self._nm_note("node_mux_cat",
-                          nm_kernel.node_mux_cat_cuda(*kd, cdf, par, cards=cards, n_bits=n_bits,
-                                                      offset=off),
-                          cat_gather_body(cdf, _entropy(NM_KEY, (rows,), n_bits, off), par, cards))
+            par = _rand_words(gen, (planes, rows, n_bits // 32))
+            for table in (cdf, cdf[:1].expand(rows, -1, -1)):      # per row, and shared
+                self._nm_note(name,
+                              nm_kernel.node_mux_cat_cuda(*kd, cat_table(table, cards), par,
+                                                          cards=cards, n_bits=n_bits, offset=off),
+                              cat_gather_body(table, _entropy(NM_KEY, (rows,), n_bits, off), par,
+                                              cards))
         torch.cuda.synchronize()
-        print(f"node_mux: {len(binary)} gather and rows cases, {len(cat)} cat cases (0-6 "
-              f"parents, k-ary roots, counter origins wrapping 2**32) equal to the plain "
+        print(f"node_mux: {len(binary)} gather and rows cases, 2 wide (7 and 8 parents; "
+              f"the gather on the cat kernel), "
+              f"{len(cat)} cat cases x per-row and shared tables (0-6 parents, k-ary roots, "
+              f"9 planes, 17 parents, counter origins wrapping 2**32) equal to the plain "
               f"versions: max abs err {self.nm_err} (tolerance 0: packed words must match "
               f"exactly)", flush=True)
 
@@ -913,19 +1136,59 @@ class Smoke:
         self.report["unfused_path"] = {"launches": self.nm_launches, "oracle_z": zrows,
                                        "programs": [f"{n}/{m}" for n, m in cases]}
 
-    def _nm_bound(self, name, rows, n_leaves, k, planes, n_bits, hashed=None):
+    def wide_path(self):
+        """The wide networks through their entry points, on the card against device="cpu"."""
+        key = prng.PRNGKey(31)
+        # mode -> (network, compile_network keywords); rows takes binary networks only
+        wide = _spec("wide")
+        modes = {"fused": (wide, {}), "unfused": (wide, dict(fused=False)),
+                 "shared": (wide, dict(share_entropy=True)),
+                 "rows": (wide_spec(tbn, 7), dict(mux_mode="rows"))}
+        ev = {m: analytic.sample_evidence(spec, torch.Generator().manual_seed(12), BATCH).numpy()
+              for m, (spec, _) in modes.items()}
+        want = {m: compile_network(spec, n_bits=N_BITS, device="cpu", **kw).decide(key, ev[m])
+                for m, (spec, kw) in modes.items()}
+        nets = {m: compile_network(spec, n_bits=N_BITS, device="cuda", **kw)
+                for m, (spec, kw) in modes.items()}
+        torch.cuda.synchronize()
+        _reset_launches()                                    # the wide path starts
+        got = {m: [t.cpu() for t in net.decide(key, ev[m])] for m, net in nets.items()}
+        torch.cuda.synchronize()
+        self.wide_launches = _launches()                     # the wide path ends
+        for name in WIDE_KERNELS + ("net_sweep", "node_mux_gather", "node_mux_cat",
+                                    "sne_encode"):
+            if self.wide_launches[name] <= 0:
+                raise AssertionError(f"the wide path launched {name} 0 times")
+        for m in modes:
+            for g, w in zip(got[m], want[m]):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"wide network {m}: the card differs from device='cpu'")
+            post = got[m][0]
+            if not (bool(torch.isfinite(post).all()) and float(post.min()) >= 0
+                    and float(post.max()) <= 1):
+                raise AssertionError(f"wide network {m}: posterior not in [0, 1]")
+        prog = record_program(nets["fused"].plan)
+        self.say(f"wide path: {modes['fused'][0].name} (a 7-parent binary node, a 3-valued "
+                 f"node with 9 binary parents; fused program {len(prog.code)} gates, "
+                 f"{prog.n_slots} live words) fused, fused=False and share_entropy=True, and "
+                 f"{modes['rows'][0].name} with mux_mode='rows', at n_bits={N_BITS}, "
+                 f"B={BATCH}: decide equal to device='cpu'; launches {self.wide_launches}")
+        self.report["wide_path"] = {"launches": self.wide_launches, "gates": len(prog.code),
+                                    "live_words": prog.n_slots}
+
+    def _nm_bound(self, rows, k, planes, n_bits, table_bytes, hashed=None):
         """(bound ms, what sets it, operations, bytes) of one node_mux launch.
 
         One hash per entropy word the function needs -- ``hashed`` for
         row-encode (:func:`_selected_leaf_words`), one per 4 stream bits
-        otherwise -- and one compare per stream bit and level.
+        otherwise -- and one compare per stream bit and level.  Bytes: the
+        node's one table, the parents' words in and the node's words out.
         """
         w = n_bits // 32
         words = rows * w * 8
         hashed = words if hashed is None else hashed
         ops = hashed * (OPS_PER_ENTROPY_WORD - 4) + words * 4 * (k - 1)
-        table = rows * n_leaves * 4 * (k - 1)                      # cpt or cdf rows
-        nbytes = table + 4 * rows * w * (planes + bitops.value_bits(k))
+        nbytes = table_bytes + 4 * rows * w * (planes + bitops.value_bits(k))
         op_ms = ops / self.int32_ops_per_s * 1e3
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes"), ops, nbytes
@@ -935,32 +1198,71 @@ class Smoke:
         gen = torch.Generator(device="cuda").manual_seed(41)
         nodes = {"node_mux_gather": ("intersection", "rgb_cross"),
                  "node_mux_rows": ("intersection", "rgb_cross"),
-                 "node_mux_cat": ("obstacle-class", "rgb_class")}
-        table = {name: {} for name in NM_KERNELS}
+                 "node_mux_cat": ("obstacle-class", "rgb_class"),
+                 "node_mux_rows_wide": ("wide", "hub"),
+                 "node_mux_cat_wide": ("wide", "cls")}
+        table = {name: {} for name in nodes}
         w = N_BITS // 32
-        for b in (BATCH, NM_BIG):
-            for name, (scen, node) in nodes.items():
-                tab, pcards, card = _node_table(scen, node, b)
-                planes = sum(bitops.value_bits(c) for c in pcards)
-                par = _rand_words(gen, (planes, b, w))
-                n_leaves = tab.shape[1]
-                kernel, plain = _nm_calls(name, kd, tab, par, (card,) + pcards, b, n_leaves)
-                hashed = _selected_leaf_words(par) if name == "node_mux_rows" else None
-                bound, by, ops, nbytes = self._nm_bound(name, b, n_leaves, card, planes, N_BITS,
-                                                        hashed)
-                row = {"rows": b, "node": f"{scen}/{node}", "ms": _event_ms(kernel, 50),
-                       "bound_ms": bound, "bound_by": by, "ops": ops, "bytes": nbytes,
-                       "hashed_words": hashed or b * w * 8,
-                       "kernel_hashed_words": b * w * 8 * (n_leaves if hashed else 1),
-                       "plain_ms": _event_ms(plain, 3, warmup=1) if b == BATCH else None}
-                table[name][b] = row
-                plain_txt = "not measured (B=1024 only)" if row["plain_ms"] is None \
-                    else f"{row['plain_ms']:.3f} ms"
-                self.say(f"{name} {scen}/{node} B={b} n_bits={N_BITS}: kernel {row['ms']:.4f} "
-                         f"ms/launch, plain {plain_txt}, bound {bound:.4f} ms ({by}; "
-                         f"{row['hashed_words']} entropy words needed, the kernel hashes "
-                         f"{row['kernel_hashed_words']})")
-                del par, tab
+        sizes = [(b, name) for b in (BATCH, NM_BIG) for name in NM_KERNELS]
+        sizes += [(WIDE_BATCH, name) for name in WIDE_KERNELS]
+        for b, name in sizes:
+            scen, node = nodes[name]
+            tab, pcards, card = _node_table(scen, node)
+            planes = sum(bitops.value_bits(c) for c in pcards)
+            par = _rand_words(gen, (planes, b, w))
+            n_leaves = tab.shape[0]
+            kernel, plain = _nm_calls(name, kd, tab, par, (card,) + pcards, b)
+            rows_mode = name.startswith("node_mux_rows")
+            hashed = _selected_leaf_words(par) if rows_mode else None
+            tab_bytes = n_leaves * (card - 1) * 4
+            if name == "node_mux_cat":                          # the int16 pattern table
+                tab_bytes = (1 << planes) * (card - 1) * 2
+            bound, by, ops, nbytes = self._nm_bound(b, card, planes, N_BITS, tab_bytes, hashed)
+            kernel_hashed = b * w * 8
+            if name == "node_mux_rows":
+                kernel_hashed *= n_leaves
+            elif name == "node_mux_rows_wide":
+                kernel_hashed *= 4                            # one word per stream position
+            row = {"rows": b, "node": f"{scen}/{node}", "ms": _device_ms(kernel),
+                   "call_ms": _event_ms(kernel, 50),
+                   "bound_ms": bound, "bound_by": by, "ops": ops, "bytes": nbytes,
+                   "hashed_words": hashed or b * w * 8, "kernel_hashed_words": kernel_hashed,
+                   "plain_ms": _event_ms(plain, 3, warmup=1) if b <= BATCH else None}
+            table[name][b] = row
+            plain_txt = "not measured (B=1024 only)" if row["plain_ms"] is None \
+                else f"{row['plain_ms']:.3f} ms"
+            self.say(f"{name} {scen}/{node} B={b} n_bits={N_BITS}: kernel {row['ms']:.4f} "
+                     f"ms/launch on the device, {row['call_ms']:.4f} ms per back-to-back call, "
+                     f"plain {plain_txt}, bound {bound:.4f} ms ({by}; "
+                     f"{row['ms'] / bound:.2f}x; {row['hashed_words']} entropy words needed, "
+                     f"the kernel hashes {row['kernel_hashed_words']})")
+            del par, tab, kernel, plain
+        # the 7-parent binary gather as a compiled network runs it: the cat
+        # kernel at k = 2 on the table folded at compile time
+        cpt, pcards, _ = _node_table("wide", "hub")
+        folded, cards = binary_cat_table(cpt), (2,) * (len(pcards) + 1)
+        par = _rand_words(gen, (len(pcards), WIDE_BATCH, w))
+
+        def kernel():
+            return nm_kernel.node_mux_cat_cuda(*kd, folded, par, cards=cards, n_bits=N_BITS)
+
+        def plain():
+            rand = _entropy(NM_KEY, (WIDE_BATCH,), N_BITS, 0)
+            return node_mux_gather_ref(cpt.expand(WIDE_BATCH, -1), rand, par)
+
+        self._nm_note("node_mux_cat", kernel()[0], plain())
+        bound, by, ops, nbytes = self._nm_bound(WIDE_BATCH, 2, len(pcards), N_BITS,
+                                                folded.numel() * 2)
+        row = {"rows": WIDE_BATCH, "node": "wide/hub", "ms": _device_ms(kernel),
+               "call_ms": _event_ms(kernel, 50), "bound_ms": bound, "bound_by": by,
+               "ops": ops, "bytes": nbytes, "plain_ms": _event_ms(plain, 3, warmup=1)}
+        table["node_mux_cat"]["wide/hub"] = row
+        self.say(f"node_mux_cat wide/hub (7 binary parents, the gather's table folded "
+                 f"beforehand) B={WIDE_BATCH} n_bits={N_BITS}: kernel {row['ms']:.4f} ms/launch "
+                 f"on the device, {row['call_ms']:.4f} ms per back-to-back call, plain "
+                 f"{row['plain_ms']:.3f} ms, bound {bound:.4f} ms ({by}; "
+                 f"{row['ms'] / bound:.2f}x)")
+        del par, folded, kernel, plain
         per_run, run_ms, dispatch_ms = {}, {}, {}
         key = prng.PRNGKey(29)
         for n in NAMES:
@@ -1013,13 +1315,15 @@ def main() -> int:
         s.phase("kernels", s.kernels)
         s.phase("main_path", s.main_path)
         s.phase("timing", s.timing)
+        s.phase("drain_trace", s.drain_trace)
         s.phase("operators", s.operators)
         if "operators" not in s.failures:
             s.phase("operator_timing", s.operator_timing)
         s.phase("unfused_kernels", s.unfused_kernels)
         if "unfused_kernels" not in s.failures:
             s.phase("unfused_path", s.unfused_path)
-        if "unfused_path" not in s.failures:
+        s.phase("wide_path", s.wide_path)
+        if "unfused_path" not in s.failures and "wide_path" not in s.failures:
             s.phase("unfused_timing", s.unfused_timing)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1027,11 +1331,11 @@ def main() -> int:
     if s.failures:
         print(f"chip_smoke: FAILED phases: {', '.join(s.failures)}", file=sys.stderr)
         return 1
-    t = s.report["net_sweep"][TIMED_SCENARIO]
+    t = s.report["net_sweep"][TIMED_SCENARIO][BATCH]
     kernels = {"kernels": [{
         "name": "net_sweep",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/net_sweep/csrc/net_sweep.cu",
+        "source": "src/repro_torch/kernels/net_sweep/csrc/net_sweep_kernel.cuh",
         "replaces": REPLACES["net_sweep"],
         "launches": s.launches,
         "max_abs_err": s.max_err,
@@ -1041,6 +1345,10 @@ def main() -> int:
         "bound_by": t["bound_by"],
         "library_ms": None,
         "at": f"{TIMED_SCENARIO} B={BATCH} n_bits={N_BITS}",
+        "call_ms": t["call_ms"],
+        "ms_b256": s.report["net_sweep"][TIMED_SCENARIO][MAX_BATCH]["ms"],
+        "bound_ms_b256": s.report["net_sweep"][TIMED_SCENARIO][MAX_BATCH]["bound_ms"],
+        "source_generated": "src/repro_torch/kernels/net_sweep/codegen.py",
     }]}
     for name, sizes in s.report["operator_timing"].items():
         line, full = sizes["line"], sizes["full"]
@@ -1059,17 +1367,23 @@ def main() -> int:
             entry["full_composed_ms"] = full["composed_ms"]
         kernels["kernels"].append(entry)
     for name, sizes in s.report["unfused_timing"]["kernels"].items():
-        row, big = sizes[BATCH], sizes[NM_BIG]
-        kernels["kernels"].append({
+        wide = name in WIDE_KERNELS
+        row = sizes[WIDE_BATCH if wide else BATCH]
+        entry = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/node_mux/csrc/node_mux.cu",
-            "replaces": REPLACES[name], "launches": s.nm_launches[name],
-            "max_abs_err": s.nm_err[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "replaces": REPLACES[name],
+            "launches": (s.wide_launches if wide else s.nm_launches)[name],
+            "max_abs_err": s.nm_err[name], "ms": row["ms"], "call_ms": row["call_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
             "library_ms": None,   # no PyTorch call computes it
-            "at": f"{row['node']} B={BATCH} n_bits={N_BITS}",
-            "ms_65536": big["ms"], "bound_ms_65536": big["bound_ms"],
-        })
+            "at": f"{row['node']} B={row['rows']} n_bits={N_BITS}",
+        }
+        if not wide:
+            entry.update(ms_65536=sizes[NM_BIG]["ms"], bound_ms_65536=sizes[NM_BIG]["bound_ms"])
+        kernels["kernels"].append(entry)
+    print(f"net_sweep programs built in this run: {net_sweep_kernel.net_sweep_cuda.builds}")
     print(s.name_power)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

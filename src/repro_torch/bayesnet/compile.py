@@ -14,10 +14,11 @@ streams never reach device memory.
 path for shared entropy, the ``fill`` estimator and ``mux_mode='rows'``):
 
 * binary roots     -> ``sne_encode`` (bit-equal to ``rng.encode_packed``).
-* k-ary roots      -> ``node_mux_categorical`` with no parents (bit-equal to
+* k-ary roots      -> the categorical node kernel with no parents (bit-equal to
   ``rng.encode_packed_categorical``).
 * all-binary nodes -> ``node_mux`` (``mux_mode='gather'`` or ``'rows'``).
-* k-ary nodes, or binary nodes with k-ary parents -> ``node_mux_categorical``.
+* k-ary nodes, or binary nodes with k-ary parents -> the categorical node
+  kernel (``node_mux_categorical_table``) on a table folded at compile time.
 * queries          -> the evidence value indicators are ANDed into the
   acceptance stream; each query value indicator ANDed with it is a bitwise
   subset of it.  ``estimator='ratio'`` popcounts both;
@@ -49,7 +50,14 @@ from repro_torch.bayesnet.spec import NetworkSpec
 from repro_torch.core import bitops, cordiv, prng, rng
 from repro_torch.kernels import backend
 from repro_torch.kernels.net_sweep import SweepPlan, net_sweep
-from repro_torch.kernels.node_mux import node_mux, node_mux_categorical
+from repro_torch.kernels.net_sweep import kernel as net_sweep_kernel
+from repro_torch.kernels.node_mux import (
+    binary_cat_table,
+    cat_table,
+    node_mux,
+    node_mux_categorical_table,
+)
+from repro_torch.kernels.node_mux.kernel import MAX_PARENTS
 from repro_torch.kernels.sne_encode import sne_encode
 from repro_torch.obs import Tracer
 
@@ -331,15 +339,20 @@ def sweep_plan(
 
 
 def _node_tables(spec: NetworkSpec, noise: NoiseModel | None, program: dict | None,
-                 dev: torch.device) -> tuple:
+                 dev: torch.device, mux_mode: str = "gather") -> tuple:
     """The unfused program's per-node tables, uploaded to ``dev`` once.
 
     One ``(name, parents, cards, table)`` per node in topological order:
     ``table`` is the float32 ``(L,)`` CPT column ``P(node=1 | row)`` of a
-    binary node with binary parents (``L = 1`` for a root), else the int32
-    ``(L, k-1)`` cumulative DAC thresholds.  ``noise`` / ``program`` route
-    every node through the perturbed integer thresholds the fused plan bakes
-    in (:func:`~repro_torch.bayesnet.noise.perturbed_cdf_rows`); a binary
+    binary node with binary parents (``L = 1`` for a root), else the
+    ``(L, k-1)`` cumulative DAC thresholds folded into the categorical
+    kernel's table (``node_mux.cat_table``: the parent-pattern table, or the
+    rows themselves for wide nodes).  A gather node with more than
+    ``MAX_PARENTS`` binary parents is folded the same way at k = 2
+    (``node_mux.binary_cat_table``), since the categorical kernels run it.
+    ``noise`` / ``program`` route every node through the perturbed integer
+    thresholds the fused plan bakes in
+    (:func:`~repro_torch.bayesnet.noise.perturbed_cdf_rows`); a binary
     node feeds a threshold ``t`` back as the float32 ``t / 256``, which the
     DAC rounding turns back into ``t`` exactly.
     """
@@ -357,10 +370,12 @@ def _node_tables(spec: NetworkSpec, noise: NoiseModel | None, program: dict | No
             else:
                 probs = [r[1] for r in spec.cpt_rows(name)]
             table = torch.tensor(probs, dtype=torch.float32, device=dev)
+            if mux_mode == "gather" and len(node.parents) > MAX_PARENTS:
+                table = binary_cat_table(table)
         else:
             rows = perturbed[name] if perturbed is not None else tuple(
                 rng.cdf_thresholds_int(r) for r in spec.cpt_rows(name))
-            table = torch.tensor(rows, dtype=torch.int32, device=dev)
+            table = cat_table(torch.tensor(rows, dtype=torch.int32, device=dev), cards)
         tables.append((name, tuple(node.parents), cards, table))
     return tuple(tables)
 
@@ -387,8 +402,8 @@ def _lower(tables: tuple, key, n_bits: int, batch: int | None, mux_mode: str) ->
         planes = [pl for pn in parents for pl in streams[pn]]
         par = (torch.stack(planes) if planes else
                torch.empty((0,) + lead + (n_bits // 32,), dtype=torch.int32, device=dev))
-        out = node_mux_categorical(sub, table.expand(lead + (-1, -1)), par, cards=cards,
-                                   n_bits=n_bits, device=dev)
+        out = node_mux_categorical_table(sub, table, par, cards=cards, n_bits=n_bits,
+                                         device=dev)
         streams[name] = tuple(out.unbind(0))
     return streams
 
@@ -412,7 +427,7 @@ def lower_streams(
     counters while each parent's planes feed all its children.  ``noise`` /
     ``program`` perturb the thresholds as :func:`_node_tables` says.
     """
-    tables = _node_tables(spec, noise, program, backend.resolve_device(device))
+    tables = _node_tables(spec, noise, program, backend.resolve_device(device), mux_mode)
     return _lower(tables, key, n_bits, batch, mux_mode)
 
 
@@ -517,7 +532,7 @@ def compile_network(
             share_entropy=share_entropy, estimator=estimator, fused=False,
             query_cards=q_cards, plan=None, device=dev, noise=noise,
             program=program, mux_mode=mux_mode,
-            tables=_node_tables(spec, noise, program, dev),
+            tables=_node_tables(spec, noise, program, dev, mux_mode),
         )
     if devices is not None and int(devices) > 1:
         raise NotImplementedError(
@@ -525,6 +540,9 @@ def compile_network(
         )
     plan = sweep_plan(spec, queries, evidence, noise=noise,
                       drift_epochs=drift_epochs, program=program)
+    if dev.type == "cuda":
+        # build the plan's kernel now, so that no launch waits on nvcc
+        net_sweep_kernel.prepare([plan])
     return CompiledNetwork(
         spec=spec, queries=queries, evidence=evidence, n_bits=n_bits,
         share_entropy=False, estimator=estimator, fused=True,

@@ -65,15 +65,17 @@ def nvcc_path() -> str:
     return found
 
 
-def build_library(source: pathlib.Path, extra_flags=()) -> tuple:
+def build_library(source: pathlib.Path, extra_flags=(), deps=()) -> tuple:
     """Compile one ``.cu`` file into ``build/``; returns (path, nvcc log).
 
     ``-Xptxas -v`` is always passed, so the log reports each kernel's
-    registers, shared memory and spills.
+    registers, shared memory and spills.  ``deps`` are the headers the source
+    includes: their text joins the hash that names the library.
     """
     source = pathlib.Path(source)
     flags = NVCC_FLAGS + ("-Xptxas", "-v") + tuple(extra_flags)
-    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()
+    text = source.read_bytes() + b"".join(pathlib.Path(d).read_bytes() for d in deps)
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()
     out = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
     log_path = out.with_suffix(".log")
     if out.exists() and log_path.exists():

@@ -13,8 +13,9 @@ word masks, evidence literals).  Two algebras use it:
 * torch int32 tensors over a ``(frames x words)`` tile -- :func:`sweep_tile`,
   the plain version of the CUDA kernel;
 * symbolic words that record each gate as an instruction
-  (:mod:`repro_torch.kernels.net_sweep.program`) -- the gate program the
-  CUDA kernel interprets.
+  (:mod:`repro_torch.kernels.net_sweep.program`) -- the gate program that
+  :mod:`~repro_torch.kernels.net_sweep.codegen` writes out as each plan's
+  CUDA kernel body.
 
 So the plain version and the kernel's program come from the same walk, and
 both follow the reference's ``sweep_tile`` step for step.
@@ -382,9 +383,10 @@ def sweep_words(plan: SweepPlan, words):
 
     ``words`` supplies the leaves: ``base(n)`` (node ``n``'s first hash
     round over its global counters), ``plane(base, k)``, ``zeros()``,
-    ``ones()``, ``emask(lo, hi)`` (all-ones on global words ``[lo, hi)``),
+    ``ones()``, ``emask(e, epochs)`` (all-ones on the global words of
+    drift epoch ``e``, :func:`epoch_word_bounds` of its own word count) and
     ``evmask(col, b)`` (all-zero where bit ``b`` of evidence column ``col``
-    is set, all-ones elsewhere) and the word count ``w_words``.  Returns
+    is set, all-ones elsewhere).  Returns
     ``[accept] + [accept & bucket for each query value slot]``: the
     acceptance word (its popcount is ``denom``) and one word per numerator
     slot, queries in plan order, values ``1 .. card-1`` within a query.
@@ -393,8 +395,7 @@ def sweep_words(plan: SweepPlan, words):
     if plan.epochs > 1:
         # Epoch membership is a pure function of the global word index, so
         # any tiling assigns identical epochs to identical positions.
-        bounds = epoch_word_bounds(words.w_words, plan.epochs)
-        emasks = [words.emask(lo, hi) for lo, hi in zip(bounds, bounds[1:])]
+        emasks = [words.emask(e, plan.epochs) for e in range(plan.epochs)]
     streams = []        # per node: tuple of value bit-plane words
     node_buckets = []   # per node: tuple of value==v indicator words, v=1..k-1
     for n, (parents, card, rows) in enumerate(plan.nodes):
@@ -464,7 +465,8 @@ class _TensorWords:
     def ones(self):
         return torch.full(self.shape, -1, dtype=torch.int32, device=self.ev.device)
 
-    def emask(self, lo, hi):
+    def emask(self, e, epochs):
+        lo, hi = epoch_word_bounds(self.w_words, epochs)[e : e + 2]
         inside = (self.wglob >= lo) & (self.wglob < hi)
         return torch.where(inside, -1, 0).to(torch.int32).expand(self.shape)
 

@@ -13,6 +13,12 @@ The tensors' device decides what runs: on the card the hand-written kernel
 (``kernel.py``) hashes its entropy in registers and launches or raises; on
 the CPU the plain torch version (``ref.py``) runs on words drawn by
 ``counter_hash_words``.  The two draw the same words.
+
+A categorical node samples from its ``ref.cat_table`` form (the pattern table
+that folds the parents' digit decode into the CDF rows, or for wide nodes
+the rows themselves).  ``node_mux_categorical`` folds per call;
+``node_mux_categorical_table`` takes a table folded once, as the compiled
+network does.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ from repro_torch.kernels.node_mux.kernel import (
     node_mux_rows_cuda,
 )
 from repro_torch.kernels.node_mux.ref import (
-    node_mux_cat_ref,
+    cat_table,
+    cat_table_body,
     node_mux_gather_ref,
     node_mux_ref,
 )
@@ -109,13 +116,39 @@ def node_mux_categorical(key, cdf, parents, *, cards: tuple, n_bits: int = 128,
     if tuple(parents.shape) != (n_planes,) + lead + (w,):
         raise ValueError(f"parents {tuple(parents.shape)} do not match cdf rows {lead}")
     flat_cdf = cdf.reshape(-1, n_leaves, k - 1)
-    rows = flat_cdf.shape[0]
-    flat_par = parents.reshape(n_planes, rows, w)
+    if flat_cdf.shape[0] and flat_cdf.stride(0) == 0:
+        flat_cdf = flat_cdf[0]              # one table for every row: fold it once
+    return _categorical(key, cat_table(flat_cdf, (k,) + pcards), parents, (k,) + pcards,
+                        n_bits, dev)
+
+
+def node_mux_categorical_table(key, table, parents, *, cards: tuple, n_bits: int = 128,
+                               device="cuda") -> torch.Tensor:
+    """:func:`node_mux_categorical` with one table for every row:
+    ``table = ref.cat_table(cdf, cards)`` of the node's (L, k-1) CDF rows,
+    folded once.  parents (P, ..., n_words) -> ``(value_bits(k),) + lead +
+    (n_words,)`` int32 on ``device``, drawing the same counters.
+    """
+    _check_n_bits(n_bits)
+    dev = backend.resolve_device(device)
+    parents = torch.as_tensor(parents).to(dev)
+    n_planes = sum(bitops.value_bits(int(c)) for c in cards[1:])
+    if parents.dim() < 2 or parents.shape[0] != n_planes or parents.shape[-1] != n_bits // 32:
+        raise ValueError(f"parents {tuple(parents.shape)} are not ({n_planes}, ..., "
+                         f"{n_bits // 32})")
+    return _categorical(key, torch.as_tensor(table).to(dev), parents, tuple(cards), n_bits, dev)
+
+
+def _categorical(key, table, parents, cards, n_bits, dev) -> torch.Tensor:
+    lead, w = tuple(parents.shape[1:-1]), n_bits // 32
+    rows = 1
+    for d in lead:
+        rows *= d
+    flat_par = parents.reshape(parents.shape[0], rows, w)
     if dev.type == "cuda":
         kd0, kd1 = rng.seed_words(key)
-        out = node_mux_cat_cuda(kd0, kd1, flat_cdf, flat_par, cards=(k,) + pcards,
-                                n_bits=n_bits)
+        out = node_mux_cat_cuda(kd0, kd1, table, flat_par, cards=cards, n_bits=n_bits)
     else:
         rand = rng.counter_hash_words(key, (rows,), n_bits // 4, device=dev)
-        out = node_mux_cat_ref(flat_cdf, rand, flat_par, (k,) + pcards)
+        out = cat_table_body(table, rand, flat_par, cards)
     return out.reshape((out.shape[0],) + lead + (w,))

@@ -18,6 +18,7 @@ import repro_torch.bayesnet as T
 from repro_torch.core import prng
 from repro_torch.kernels.net_sweep import kernel as K
 from repro_torch.kernels.net_sweep import net_sweep
+from torch_wide_net import wide_spec
 
 torch.set_num_threads(1)
 
@@ -30,6 +31,10 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
     return torch.device("cuda")
+
+
+def _spec(name):
+    return wide_spec(T, int(name[5:])) if name.startswith("wide-") else T.by_name(name)
 
 
 def _evidence(spec, b, seed):
@@ -48,7 +53,9 @@ _CASES = (
        ("intersection-cat", 1024, 16, True, 3, 0, None),
        ("lane-change", 2048, 8, True, 3, 0, None),
        ("intersection", 1024, 16, False, 1, 2**25 - 7, 2**25 + 9),
-       ("obstacle-class", 1024, 8, True, 2, 2**27 + 5, 2**28)]
+       ("obstacle-class", 1024, 8, True, 2, 2**27 + 5, 2**28),
+       ("wide-7", 4096, 300, False, 1, 0, None),
+       ("wide-7", 1024, 16, True, 3, 2**26 - 3, 2**26 + 13)]
 )
 _IDS = [f"{c[0]}-{c[1]}b-B{c[2]}-{'noise' if c[3] else 'clean'}-E{c[4]}-f{c[5]}"
         for c in _CASES]
@@ -59,7 +66,7 @@ _IDS = [f"{c[0]}-{c[1]}b-B{c[2]}-{'noise' if c[3] else 'clean'}-E{c[4]}-f{c[5]}"
 @pytest.mark.parametrize("case", _CASES, ids=_IDS)
 def test_cuda_kernel_equals_plain_version(case, decide, cuda_device):
     name, n_bits, b, noisy, epochs, frame0, total = case
-    spec = T.by_name(name)
+    spec = _spec(name)
     plan = T.sweep_plan(spec, spec.queries, spec.evidence,
                         noise=T.NoiseModel.nominal() if noisy else None,
                         drift_epochs=epochs)
@@ -113,3 +120,51 @@ def test_cuda_wrapper_rejects_bad_input(cuda_device):
         K.net_sweep_cuda(1, 2, ev, plan=plan, n_bits=100)
     with pytest.raises(ValueError):
         K.net_sweep_cuda(1, 2, ev.cpu(), plan=plan, n_bits=128)
+
+
+@pytest.mark.cuda
+def test_compile_network_builds_before_the_first_launch(cuda_device):
+    """compile_network(device="cuda") builds the plan's kernel, so a drain
+    never waits on nvcc; plans with identical programs share a library."""
+    spec = T.by_name("pedestrian-night")
+    noise = T.NoiseModel.nominal(seed=7919)        # a plan no other test builds
+    builds = K.net_sweep_cuda.builds
+    net = T.compile_network(spec, n_bits=512, device=cuda_device, noise=noise)
+    assert K.net_sweep_cuda.builds == builds + 1      # a new plan: its own program
+    launches = K.net_sweep_cuda.launches
+    driver = T.FrameDriver(net, max_batch=16, salt=3)
+    driver.submit(_evidence(spec, 40, seed=4))
+    assert len(driver.drain_async()) == 40
+    torch.cuda.synchronize()
+    assert K.net_sweep_cuda.builds == builds + 1
+    assert K.net_sweep_cuda.launches > launches
+    # the same plan at another n_bits draws no word-dependent literal: no build
+    T.compile_network(spec, n_bits=1024, device=cuda_device, noise=noise)
+    assert K.net_sweep_cuda.builds == builds + 1
+
+
+@pytest.mark.cuda
+def test_retry_escalation_with_drift_epochs_builds_nothing(cuda_device):
+    """A drift-epoch plan's program takes the word count at run time, so the
+    retry levels' longer streams reuse the library compile_network built."""
+    spec = T.by_name("lane-change")
+    noise = T.NoiseModel.nominal(seed=7927)        # a plan no other test builds
+    retry = T.RetryPolicy(min_confidence=0.95, max_retries=2, escalation=2)
+    frames = _evidence(spec, 40, seed=5)
+    outs = []
+    for device in (cuda_device, "cpu"):
+        net = T.compile_network(spec, n_bits=512, device=device, noise=noise,
+                                drift_epochs=3)
+        builds, launches = K.net_sweep_cuda.builds, K.net_sweep_cuda.launches
+        driver = T.FrameDriver(net, max_batch=16, salt=5, retry=retry)
+        driver.submit(frames)
+        outs.append(driver.drain())
+        assert K.net_sweep_cuda.builds == builds
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert K.net_sweep_cuda.launches > launches
+            assert any(r.attempts > 1 for r in driver.reports.values())
+    assert sorted(outs[0]) == sorted(outs[1])
+    for rid, (post, acc) in outs[1].items():
+        np.testing.assert_array_equal(outs[0][rid][0], post)
+        assert outs[0][rid][1] == acc

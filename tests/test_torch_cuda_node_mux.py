@@ -7,9 +7,13 @@ reference package, so it runs on the machine with the card:
     python -m pytest -q -p no:cacheprovider tests/test_torch_cuda_node_mux.py
 
 Each kernel is held bit for bit against its plain torch version, which
-``test_torch_node_mux.py`` holds against the JAX reference on the CPU, on
-entropy words drawn at the kernel's counter origin.  Then the unfused
-program on the card against the same program compiled for the CPU.
+``test_torch_node_mux.py`` and ``test_torch_wide_nodes.py`` hold against the
+JAX reference on the CPU, on entropy words drawn at the kernel's counter
+origin: the templated binary kernels at 0-6 parents, their wide paths at 7
+and 8, the categorical pattern-table kernel at 0-5 parent planes and its
+wide path above 8 planes and 16 parents.  Then the unfused program on the
+card against the same program compiled for the CPU, networks with 7- and
+8-parent nodes included.
 """
 
 import numpy as np
@@ -21,6 +25,7 @@ from repro_torch.core import bitops, prng, rng
 from repro_torch.kernels import node_mux, node_mux_categorical
 from repro_torch.kernels.node_mux import kernel as K
 from repro_torch.kernels.node_mux import ref
+from torch_wide_net import wide_spec
 
 torch.set_num_threads(1)
 
@@ -67,20 +72,54 @@ def test_gather_and_rows_kernels_equal_plain(cuda_device, m, rows, n_bits, offse
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("k,pcards", [(3, ()), (4, ()), (2, (3,)), (3, (2, 3)),
-                                      (4, (4, 2)), (3, (4, 2, 3)), (5, (2, 2, 2, 2))])
+# P = 0..5 parent planes, then wide nodes: 9 planes (above the pattern
+# table's 8) and 17 parents (above the former cap of 16 parents)
+CAT_CASES = [(3, ()), (4, ()), (2, (3,)), (3, (2, 3)), (4, (4, 2)), (3, (4, 2, 3)),
+             (5, (2, 2, 2, 2)), (2, (3, 2, 2, 2)), (3, (2,) * 9), (3, (2,) * 17)]
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per-row", "shared"])
+@pytest.mark.parametrize("k,pcards", CAT_CASES)
 @pytest.mark.parametrize("rows,n_bits,offset", [(257, 128, 0), (1000, 4096, WRAP)])
-def test_cat_kernel_equals_plain(cuda_device, k, pcards, rows, n_bits, offset):
+def test_cat_kernel_equals_plain(cuda_device, k, pcards, rows, n_bits, offset, shared):
+    planes = sum(bitops.value_bits(c) for c in pcards)
+    if planes > 8:                    # the plain version's working set grows with L
+        rows, n_bits = 7, 64
     n_leaves = int(np.prod(pcards)) if pcards else 1
     r = np.random.default_rng(k)
-    cdf = -np.sort(-r.integers(0, 257, (rows, n_leaves, k - 1)), axis=-1)
-    cdf = torch.from_numpy(cdf.astype(np.int32)).to(cuda_device)
-    planes = sum(bitops.value_bits(c) for c in pcards)
+    cdf = -np.sort(-r.integers(0, 257, (1 if shared else rows, n_leaves, k - 1)), axis=-1)
+    cdf = torch.from_numpy(cdf.astype(np.int32)).to(cuda_device).expand(rows, -1, -1)
     par = _words(k + 1, (planes, rows, n_bits // 32), cuda_device)
-    got = K.node_mux_cat_cuda(*KD, cdf, par, cards=(k,) + pcards, n_bits=n_bits, offset=offset)
-    want = ref.cat_gather_body(cdf, _entropy((rows,), n_bits, offset, cuda_device), par,
-                               (k,) + pcards)
+    cards = (k,) + pcards
+    table = ref.cat_table(cdf[0] if shared else cdf, cards)
+    counter = K.node_mux_cat_wide_cuda if planes > 8 else K.node_mux_cat_cuda
+    before = counter.launches
+    got = K.node_mux_cat_cuda(*KD, table, par, cards=cards, n_bits=n_bits, offset=offset)
+    assert counter.launches == before + 1
+    want = ref.cat_gather_body(cdf, _entropy((rows,), n_bits, offset, cuda_device), par, cards)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [7, 8])
+@pytest.mark.parametrize("rows,n_bits,offset", [(300, 256, 0), (64, 1024, WRAP), (7, 32, 5)])
+def test_wide_gather_and_rows_equal_plain(cuda_device, m, rows, n_bits, offset):
+    cpt = _cpt(m, rows, 1 << m, cuda_device)
+    par = _words(m + 1, (m, rows, n_bits // 32), cuda_device)
+    # the wide gather runs on the pattern-table kernel at k = 2 (m <= 8 planes)
+    before = (K.node_mux_cat_cuda.launches, K.node_mux_rows_wide_cuda.launches)
+    got = K.node_mux_gather_cuda(*KD, cpt, par, n_bits=n_bits, offset=offset)
+    want = ref.node_mux_gather_ref(cpt, _entropy((rows,), n_bits, offset, cuda_device), par)
+    assert torch.equal(got, want)
+    got = K.node_mux_rows_cuda(*KD, cpt, par, n_bits=n_bits, offset=offset)
+    want = ref.node_mux_ref(cpt, _entropy((rows, 1 << m), n_bits, offset, cuda_device), par)
+    assert torch.equal(got, want)
+    # one shared CPT row for every row: passed with stride 0, never copied
+    shared = cpt[:1].expand(rows, -1)
+    got = K.node_mux_gather_cuda(*KD, shared, par, n_bits=n_bits, offset=offset)
+    want = ref.node_mux_gather_ref(shared, _entropy((rows,), n_bits, offset, cuda_device), par)
+    assert torch.equal(got, want)
+    after = (K.node_mux_cat_cuda.launches, K.node_mux_rows_wide_cuda.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 1)
 
 
 def test_ops_launch_the_kernels_and_count(cuda_device):
@@ -103,9 +142,13 @@ def test_ops_launch_the_kernels_and_count(cuda_device):
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
+    # 7 binary parents run (the wide gather); CPU tensors and parents that do
+    # not match the CPT are refused
     cpt = _cpt(0, 4, 1 << 7, cuda_device)
-    with pytest.raises(ValueError, match="at most"):
-        K.node_mux_gather_cuda(*KD, cpt, _words(0, (7, 4, 1), cuda_device), n_bits=32)
+    par = _words(0, (7, 4, 1), cuda_device)
+    got = K.node_mux_gather_cuda(*KD, cpt, par, n_bits=32)
+    assert torch.equal(got, ref.node_mux_gather_ref(cpt, _entropy((4,), 32, 0, cuda_device),
+                                                    par))
     with pytest.raises(ValueError):
         K.node_mux_gather_cuda(*KD, cpt.cpu(), _words(0, (7, 4, 1), "cpu"), n_bits=32)
     with pytest.raises(ValueError):
@@ -113,12 +156,12 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
                              n_bits=32)
 
 
-@pytest.mark.parametrize("name", sorted(T.SCENARIOS))
+@pytest.mark.parametrize("name", sorted(T.SCENARIOS) + ["wide-7", "wide-8"])
 def test_unfused_program_on_the_card_equals_cpu(cuda_device, name):
-    spec = T.by_name(name)
+    spec = wide_spec(T, int(name[5:])) if name.startswith("wide-") else T.by_name(name)
     r = np.random.default_rng(1)
     ev = np.stack([r.integers(0, spec.card(e), 64) for e in spec.evidence], 1).astype(np.int32)
-    modes = [dict(fused=False), dict(share_entropy=True), dict(estimator="fill")]
+    modes = [dict(fused=False), dict(share_entropy=True), dict(estimator="fill"), {}]
     if spec.max_card() == 2:
         modes.append(dict(mux_mode="rows"))
     for kw in modes:

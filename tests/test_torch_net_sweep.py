@@ -23,6 +23,7 @@ from repro_torch.core import prng
 from repro_torch.kernels import backend
 from repro_torch.kernels.net_sweep import (
     SweepPlan,
+    epoch_word_bounds,
     net_sweep,
     plan_from_reference,
     program as P,
@@ -116,7 +117,8 @@ _SALTS = np.array([0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F, 0x165667B1,
 
 
 def _interpret(prog, plan, kd, ev, n_bits, frame0, total, decide):
-    """A numpy interpreter of the gate program, as the CUDA kernel runs it."""
+    """A numpy interpreter of the gate program: the gate sequence that the
+    generated CUDA body runs (``codegen.emit``), one gate at a time."""
     b, w_words = ev.shape[0], n_bits // 32
     f = np.arange(b, dtype=np.uint64)[:, None]
     w = np.arange(w_words, dtype=np.uint64)[None, :]
@@ -144,7 +146,9 @@ def _interpret(prog, plan, kd, ev, n_bits, frame0, total, decide):
         elif op == P.ZERO:
             v = np.zeros((b, w_words), np.uint32)
         elif op == P.EMASK:
-            v = np.broadcast_to(np.where((w >= a) & (w < c), full, np.uint32(0)), (b, w_words))
+            lo, hi = epoch_word_bounds(w_words, c)[a:a + 2]
+            v = np.broadcast_to(np.where((w >= lo) & (w < hi), full, np.uint32(0)),
+                                (b, w_words))
         elif op == P.EVMASK:
             v = np.broadcast_to(np.where(((ev[:, a:a + 1] >> c) & 1) == 1, np.uint32(0), full),
                                 (b, w_words))
@@ -193,7 +197,7 @@ def test_plain_sweep_and_gate_program_bit_exact(case, decide):
     for g, w in zip(got, want):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    prog = record_program(tp, n_bits // 32)
+    prog = record_program(tp)
     interp = _interpret(prog, tp, KD, ev, n_bits, frame0,
                         b if total is None else total, decide)
     for g, w in zip(interp, want):
@@ -202,8 +206,8 @@ def test_plain_sweep_and_gate_program_bit_exact(case, decide):
 
 def test_gate_program_is_compact_and_cached():
     _, _, tp = _plans("intersection-cat", R.NoiseModel.nominal(), 3)
-    prog = record_program(tp, 128)
-    assert record_program(tp, 128) is prog
+    prog = record_program(tp)
+    assert record_program(tp) is prog
     assert prog.code.dtype == np.int32 and prog.code.shape[1] == 4
     assert prog.n_out == tp.n_value_slots + 1
     outs = prog.code[prog.code[:, 0] == P.OUT]
@@ -211,16 +215,31 @@ def test_gate_program_is_compact_and_cached():
     # slots are reused: the live working set is far below the instruction count
     assert prog.n_slots < len(prog.code) // 10
     assert prog.int_ops_per_word > len(prog.code)
+    assert 0 < prog.alu_ops_per_word < prog.int_ops_per_word
+
+
+def test_int_ops_count_logic_cones_as_lop3():
+    """The bound's work count: a cone of logic gates over at most three
+    values is one LOP3 (NOT and constants fold into it); a fourth value
+    makes the cone's root an operation of its own."""
+    base = [(P.BASE, 0, 0, 0)] + [(P.PLANE, 1 + k, 0, k) for k in range(4)]
+    cone = [(P.AND, 5, 1, 2), (P.NOT, 6, 5, 0), (P.ONES, 7, 0, 0), (P.AND, 8, 6, 7),
+            (P.XOR, 9, 8, 3), (P.OUT, -1, 9, 0)]
+    hash_alu, hash_other = 6 + 4 * 6, 3 + 4 * 2
+    assert P._int_ops(base + cone) == (hash_alu + 2 + hash_other + 1, hash_alu + 2)
+    wider = cone + [(P.OR, 10, 9, 4), (P.OUT, -1, 10, 1)]
+    assert P._int_ops(base + wider) == (hash_alu + 4 + hash_other + 2, hash_alu + 4)
 
 
 def test_launch_config_fits_shared_memory():
-    assert launch_config(21, 4, 128, 227 * 1024) == (256, 2, 4 * (21 * 256 + 2 * 4))
-    threads, fpb, smem = launch_config(40, 4, 4, 48 * 1024)
-    assert fpb * 4 >= threads and smem <= 48 * 1024
-    threads, _, _ = launch_config(300, 4, 128, 227 * 1024)
-    assert threads < 256
+    # shared memory holds only the frames' counts: one frame per block at 4096 bits
+    assert launch_config(4, 128) == (128, 1, 4 * 4)
+    threads, fpb, smem = launch_config(4, 4)
+    assert fpb * 4 >= threads and smem == 4 * fpb * 4
+    threads, fpb, smem = launch_config(300, 1, 48 * 1024)
+    assert threads < 128 and fpb >= threads and smem <= 48 * 1024
     with pytest.raises(ValueError):
-        launch_config(10**6, 4, 128, 227 * 1024)
+        launch_config(10**6, 1)
 
 
 def test_pick_block_ladder():
