@@ -35,10 +35,15 @@ Phases (any failure makes the script exit non-zero without the result line):
               of an SM and multiplies and adds free to use all 128); frames per
               second of the async drain; single-frame ``decide`` latency
               p50/p99 at n_bits 128 and 4096.
-6. drain_trace -- ``torch.profiler`` over one async drain (intersection, 4096
+6. binary_timing -- the binary gather and row encode at 1 to 6 parents
+              (B=1024 and 65,536), beside the gather's pattern-table route
+              (held equal to the gather first).  It runs early: once the
+              unfused and wide phases have run, torch.profiler sessions on
+              the H100 drop a few launches (PERF.md).
+7. drain_trace -- ``torch.profiler`` over one async drain (intersection, 4096
               frames, max_batch=256): the device's busy share of the window
               and kernel time by name.
-7. operators -- the paper's fusion operators.  Each of ``sne_encode``,
+8. operators -- the paper's fusion operators.  Each of ``sne_encode``,
               ``pand_popcount``, ``bayes_decide`` and ``fusion_map`` against
               its plain torch version on the card (bit for bit; fusion_map
               within atol 2e-6, rtol 1e-5) at M 1..3, K 2 and 16, row counts
@@ -53,19 +58,21 @@ Phases (any failure makes the script exit non-zero without the result line):
               decision (4096 decisions, M=K=2, 128 bits: fused, composed,
               ``bayes_decide_packed``); and the ``obstacle_fusion`` example
               flow at 64x64.
-8. operator_timing -- CUDA-event times per launch of the four kernels at the
+9. operator_timing -- CUDA-event times per launch of the four kernels at the
               full batch and at a 65,536-pixel slice of it, beside their plain
               versions (slice only: the plain versions do not fit at full
               size), their bounds, and the composed torch expression for
               ``fusion_map``.
-9. unfused_kernels -- the ``node_mux`` kernels against their plain versions
-              on the card, bit for bit: gather and rows at 0 to 6 parents and
-              at 7 and 8 (the gather on the categorical kernel at k = 2, rows
-              on its wide kernel), the categorical pattern-table
-              kernel at 0 to 4 parent planes (per-row and shared tables) and
+10. unfused_kernels -- the ``node_mux`` kernels against their plain versions
+              on the card, bit for bit: gather and rows at 0 to 6 parents
+              (per-row tables and shared rows holding thresholds 0, 128, 256
+              and the half steps) and at 7 and 8 (the gather on the
+              categorical kernel at k = 2, rows on its wide kernel), the
+              categorical pattern-table kernel at 0 to 6 parent planes
+              (per-row and shared tables; 6 binary parents at k = 2) and
               its wide path at 9 planes and at 17 parents, k-ary roots, and
               counter origins that wrap 2**32.
-10. unfused_path -- the unfused lowering through its entry points at
+11. unfused_path -- the unfused lowering through its entry points at
               n_bits=4096, B=1024, counts reset just before and read just
               after: 7 scenarios x {``fused=False``, ``share_entropy=True``},
               ``mux_mode='rows'`` on the 4 binary scenarios and
@@ -76,21 +83,27 @@ Phases (any failure makes the script exit non-zero without the result line):
               Then the unfused, shared-entropy and fused posteriors against the
               enumeration oracle: per distinct evidence vector, the posterior
               pooled over its frames within 4.5 sqrt(p (1-p) / accepted).
-11. wide_path -- the wide network through ``compile_network`` fused,
+12. wide_path -- the wide network through ``compile_network`` fused,
               ``fused=False``, ``share_entropy=True`` and ``mux_mode='rows'`` at
               n_bits=4096, B=1024, each ``decide`` bit-equal to
               ``device="cpu"``; counts reset just before and read just after,
               and each wide kernel must have launched.
-12. unfused_timing -- device time per launch and per back-to-back call of the
+13. unfused_timing -- device time per launch and per back-to-back call of the
               node_mux kernels at B=1024 and B=65,536 (n_bits=4096; the wide
-              paths at B=256) beside their plain versions and bounds; launches of each kernel per
-              unfused ``run`` of each scenario; wall time per 1024-frame batch
-              of the unfused, shared and fused programs.
+              paths at B=256) beside their plain versions and bounds; launches
+              of each kernel per unfused ``run`` of each scenario; wall time per
+              1024-frame batch of the unfused, shared and fused programs;
+              ``sne_encode`` at the unfused root shape.
 
 Before the last line it prints the ``nvidia-smi`` name/power-limit line and a
 ``{"kernels": [...]}`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  The full report also goes to
 ``chiprun_out/chip_smoke.json``.
+
+``python3 chip_smoke.py --phases binary_timing[,...]`` runs the device phase
+and the named phases only, in their usual order, and prints their report as
+the last line instead of the result lines.  A phase that reads what an
+earlier one leaves needs that one named too.
 """
 
 from __future__ import annotations
@@ -217,33 +230,73 @@ REPLACES = {
     "node_mux_cat_wide": "src/repro/kernels/node_mux/kernel.py:86",
 }
 WIDE_KERNELS = ("node_mux_rows_wide", "node_mux_cat_wide")
+# parents -> the binary node timed per parent count: intersection's 1-, 2- and
+# 3-parent nodes, and the hub of wide_spec(m) for 4 to 6 parents
+BINARY_NODES = {1: ("intersection", "horn"), 2: ("intersection", "radar_cross"),
+                3: ("intersection", "rgb_cross"), 4: ("wide-4", "hub"), 5: ("wide-5", "hub"),
+                6: ("wide-6", "hub")}
+# CPT values whose thresholds are 0, 256 (also clipped from outside [0, 1]), 128
+# and the half steps (2k+1)/512, which round to even
+EDGE_P = (0.0, 1.0, 0.5, 1 / 512, 3 / 512, 255 / 512, 257 / 512, 511 / 512, 1.5, -0.25)
 WIDE_BATCH = 256                      # rows of the wide kernels' timing (their plain versions fit)
 NOISY = ("intersection", "intersection-cat")   # the drift-epoch checks: nominal noise, 3 epochs
 
 
 def _spec(name):
+    if name in ("wide-4", "wide-5", "wide-6"):
+        return wide_spec(tbn, int(name[5:]))
     return wide_spec(tbn, 7, n_cls=9) if name.startswith("wide") else by_name(name)
+
+
+def _sass_counts(library, kernel):
+    """{mangled function: Counter of SASS opcodes} of the functions whose name
+    holds ``kernel`` in one built library (``cuobjdump -sass``)."""
+    tool = pathlib.Path(backend.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    funcs, ops = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            ops = funcs.setdefault(name, collections.Counter()) if kernel in name else None
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if ops is not None and m:
+            ops[m.group(1)] += 1
+    if not funcs:
+        raise AssertionError(f"no {kernel} SASS in {library}")
+    return funcs
+
+
+def _int_split(ops):
+    """(ALU-only, multiply/add) integer instructions of one opcode Counter."""
+    return (sum(ops[k] for k in SASS_ALU), sum(ops[k] for k in SASS_MULADD))
 
 
 def _sass_ops(library):
     """(ALU-only, multiply/add) integer instructions in the SASS of the
-    ``net_sweep_kernel`` of one built library (``cuobjdump -sass``): the
-    static count of a straight-line body that runs once per item, with the
-    item loop and the count epilogue around it."""
-    tool = pathlib.Path(backend.nvcc_path()).with_name("cuobjdump")
-    out = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
-                         timeout=300, check=True).stdout
-    ops, inside = collections.Counter(), False
-    for line in out.splitlines():
-        if "Function :" in line:
-            inside = "net_sweep_kernel" in line
+    ``net_sweep_kernel`` of one built library: the static count of a
+    straight-line body that runs once per item, with the item loop and the
+    count epilogue around it."""
+    return _int_split(sum(_sass_counts(library, "net_sweep_kernel").values(),
+                          collections.Counter()))
+
+
+def _node_mux_sass(library):
+    """{"gather m=3": {"alu":, "muladd":, "prmt":, "imad":}, "rows m=3 selected": ..}
+    for each instance of the templated binary kernel: static counts of the
+    whole kernel (the per-row threshold path and the item loop included)."""
+    rows = {}
+    for name, ops in _sass_counts(library, "node_mux_binary_kernel").items():
+        m = re.search(r"node_mux_binary_kernelILi(\d)ELb([01])ELb([01])E", name)
+        if m is None:
             continue
-        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
-        if inside and m:
-            ops[m.group(1)] += 1
-    if not ops:
-        raise AssertionError(f"no net_sweep_kernel SASS in {library}")
-    return (sum(ops[k] for k in SASS_ALU), sum(ops[k] for k in SASS_MULADD))
+        kind = "gather" if m.group(2) == "0" else \
+            ("rows selected" if m.group(3) == "1" else "rows every row")
+        alu, muladd = _int_split(ops)
+        rows[f"{kind} m={m.group(1)}"] = {"alu": alu, "muladd": muladd, "prmt": ops["PRMT"],
+                                          "imad": ops["IMAD"], "total": sum(ops.values())}
+    return rows
 
 
 def _reset_launches():
@@ -286,25 +339,49 @@ def _event_ms(fn, reps, warmup=2):
     return start.elapsed_time(stop) / reps
 
 
-def _device_ms(fn, reps=50, warmup=2):
-    """Device time per call: the summed durations of the kernels and copies
-    ``fn`` puts on the card, from torch.profiler's CUDA activity.  Unlike
-    :func:`_event_ms` it leaves out the host's cost of a launch, which sets
-    back-to-back event times once a kernel is shorter than its launch."""
+PROFILER_DROPPED = []       # per timed kernel: launches a torch.profiler session did not record
+
+
+def _device_ms(fn, reps=50, warmup=2, tries=5):
+    """Device time of the one kernel ``fn`` launches, per launch: the mean
+    duration of its launches in a torch.profiler session of ``reps`` calls.
+    Unlike :func:`_event_ms` it leaves out the host's cost of a launch,
+    which sets back-to-back event times once a kernel is shorter than its
+    launch.
+
+    The profiler can drop some of a session's activities (on the H100 a few
+    in most sessions once the unfused and wide phases have run, at times
+    all), and a sum over the session would then read low.  So this takes the mean over the launches
+    it recorded, checks that every recorded activity is that one kernel
+    (one call launches exactly one, by the wrappers' launch counts), and
+    runs a session again, ``tries`` in all, when it recorded fewer than half
+    of them.  ``PROFILER_DROPPED`` keeps the number dropped per timed
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
 
+    before = sum(_launches().values())
+    fn()
+    if sum(_launches().values()) - before != 1:
+        raise AssertionError("a timed call must launch exactly one kernel of the port")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return us / reps / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = {name for name, _ in spans}
+        if len(names) > 1 or len(spans) > reps:
+            raise AssertionError(f"the timed call put more than its kernel on the card: "
+                                 f"{len(spans)} activities over {reps} calls, {sorted(names)}")
+        if 2 * len(spans) >= reps:
+            PROFILER_DROPPED.append(reps - len(spans))
+            return sum(us for _, us in spans) / len(spans) / 1e3
+    raise AssertionError(f"torch.profiler recorded {len(spans)} of {reps} launches, "
+                         f"in {tries} tries")
 
 
 def _entropy(key, shape, n_bits, offset):
@@ -407,6 +484,20 @@ def _nm_calls(name, kd, table, parents, cards, b):
                 lambda: node_mux_ref(rows, entropy(), parents))
     return (lambda: nm_kernel.node_mux_gather_cuda(*kd, rows, parents, n_bits=N_BITS),
             lambda: node_mux_gather_ref(rows, entropy(), parents))
+
+
+def _edge_rows(m):
+    """(L,) shared CPT rows on the card that together hold every EDGE_P value:
+    one row once L holds them all, else as many as they need."""
+    n_leaves = 1 << m
+    fill = torch.rand(n_leaves, generator=torch.Generator().manual_seed(m))
+    rows = []
+    for i in range(0, len(EDGE_P), n_leaves):
+        row = fill.clone()
+        chunk = torch.tensor(EDGE_P[i:i + n_leaves])
+        row[: chunk.numel()] = chunk
+        rows.append(row.cuda())
+    return rows
 
 
 def _pooled_z(ev, post, acc, exact, shared):
@@ -517,6 +608,14 @@ class Smoke:
         for name, (path, log) in built.items():
             print(f"{path.name}:\n{log.strip()}", flush=True)
             LIBRARIES[name].library()
+        try:
+            self.report["node_mux_sass"] = _node_mux_sass(built["node_mux"][0])
+            for kind, c in sorted(self.report["node_mux_sass"].items()):
+                print(f"node_mux_binary_kernel {kind}: SASS {c['total']} instructions, integer "
+                      f"{c['alu']} ALU-only + {c['muladd']} multiply/add ({c['prmt']} PRMT, "
+                      f"{c['imad']} IMAD)", flush=True)
+        except (OSError, subprocess.SubprocessError, AssertionError) as e:
+            print(f"node_mux SASS not counted ({type(e).__name__}: {e})", flush=True)
         programs = dict(net_sweep_kernel.BUILDS)
         self.sass = {}
         for info in programs.values():
@@ -991,18 +1090,24 @@ class Smoke:
         half_steps = (2 * torch.arange(8, device="cuda") + 1) / 512
         # (parents, rows, n_bits, counter origin)
         binary = [(0, 333, 128, 0), (1, BATCH, N_BITS, 0), (2, BATCH, N_BITS, NM_WRAP),
-                  (3, BATCH, N_BITS, 0), (3, 1000, N_BITS, NM_WRAP), (6, 300, 256, NM_WRAP)]
+                  (3, BATCH, N_BITS, 0), (3, 1000, N_BITS, NM_WRAP), (4, 500, 1024, 0),
+                  (5, 300, 512, NM_WRAP), (6, 300, 256, NM_WRAP)]
         for m, rows, n_bits, off in binary:
             cpt = torch.rand((rows, 1 << m), generator=gen, device="cuda")
             cpt.view(-1)[:8] = half_steps[: cpt.numel()]
             cpt[-1] = 1.0
             par = _rand_words(gen, (m, rows, n_bits // 32))
-            self._nm_note("node_mux_gather",
-                          nm_kernel.node_mux_gather_cuda(*kd, cpt, par, n_bits=n_bits, offset=off),
-                          node_mux_gather_ref(cpt, _entropy(NM_KEY, (rows,), n_bits, off), par))
-            self._nm_note("node_mux_rows",
-                          nm_kernel.node_mux_rows_cuda(*kd, cpt, par, n_bits=n_bits, offset=off),
-                          node_mux_ref(cpt, _entropy(NM_KEY, (rows, 1 << m), n_bits, off), par))
+            # per-row tables, then shared rows (stride 0) holding 0, 128, 256 and half steps
+            for table in [cpt] + [row.expand(rows, -1) for row in _edge_rows(m)]:
+                self._nm_note("node_mux_gather",
+                              nm_kernel.node_mux_gather_cuda(*kd, table, par, n_bits=n_bits,
+                                                             offset=off),
+                              node_mux_gather_ref(table, _entropy(NM_KEY, (rows,), n_bits, off),
+                                                  par))
+                want = node_mux_ref(table, _entropy(NM_KEY, (rows, 1 << m), n_bits, off), par)
+                self._nm_note("node_mux_rows",
+                              nm_kernel.node_mux_rows_cuda(*kd, table, par, n_bits=n_bits,
+                                                           offset=off), want)
         # the wide paths: 7 and 8 binary parents (the gather on the pattern-table
         # kernel at k = 2, rows; shared CPT rows too)
         for m, rows, n_bits, off in ((7, 300, 256, NM_WRAP), (8, 64, N_BITS, 0)):
@@ -1019,11 +1124,13 @@ class Smoke:
                           nm_kernel.node_mux_rows_cuda(*kd, cpt, par, n_bits=n_bits, offset=off),
                           node_mux_ref(cpt, _entropy(NM_KEY, (rows, 1 << m), n_bits, off), par))
         # (cards, rows, n_bits, counter origin): obstacle-class's rgb_class, k-ary
-        # roots (no parents), parents of card 3 (their planes spell digit 3), then
+        # roots (no parents), parents of card 3 (their planes spell digit 3), 6
+        # binary parents at k = 2 (a 6-parent gather's pattern-table route), then
         # the wide path: 9 planes (above the pattern table's 8) and 17 parents
         cat = [((4, 4, 2), BATCH, N_BITS, 0), ((3,), BATCH, N_BITS, NM_WRAP), ((4,), 257, 128, 0),
                ((3, 3, 2), 1000, N_BITS, NM_WRAP), ((2, 3, 2, 2), BATCH, 256, 0),
-               ((5, 2, 2, 2, 2), 300, 256, NM_WRAP), ((3,) + (2,) * 9, 64, 256, NM_WRAP),
+               ((5, 2, 2, 2, 2), 300, 256, NM_WRAP), ((2,) * 7, 300, 256, NM_WRAP),
+               ((3,) + (2,) * 9, 64, 256, NM_WRAP),
                ((3, 4, 3) + (2,) * 5, 32, 128, 0), ((3,) + (2,) * 17, 8, 64, NM_WRAP)]
         for cards, rows, n_bits, off in cat:
             k, pcards = cards[0], cards[1:]
@@ -1040,7 +1147,8 @@ class Smoke:
                               cat_gather_body(table, _entropy(NM_KEY, (rows,), n_bits, off), par,
                                               cards))
         torch.cuda.synchronize()
-        print(f"node_mux: {len(binary)} gather and rows cases, 2 wide (7 and 8 parents; "
+        print(f"node_mux: {len(binary)} gather and rows cases (0-6 parents, per-row tables and "
+              f"shared rows holding thresholds 0, 128, 256 and the half steps), 2 wide (7 and 8 parents; "
               f"the gather on the cat kernel), "
               f"{len(cat)} cat cases x per-row and shared tables (0-6 parents, k-ary roots, "
               f"9 planes, 17 parents, counter origins wrapping 2**32) equal to the plain "
@@ -1193,6 +1301,85 @@ class Smoke:
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes"), ops, nbytes
 
+    def binary_timing(self):
+        """The binary gather and row encode per parent count (BINARY_NODES), at
+        B=1024 and B=65,536 with the node's one table (stride 0): device time
+        per launch beside the bound; beside the gather the pattern-table route
+        (``node_mux_cat`` on the table folded beforehand), and the row encode.
+        The pattern-table route is held equal to the gather first."""
+        kd = rng.seed_words(NM_KEY)
+        gen = torch.Generator(device="cuda").manual_seed(43)
+        w = N_BITS // 32
+        out = {}
+        for m, (scen, node) in BINARY_NODES.items():
+            cpt, pcards, _ = _node_table(scen, node)
+            folded, cards = binary_cat_table(cpt), (2,) * (m + 1)
+            out[m] = {}
+            for b in (BATCH, NM_BIG):
+                par = _rand_words(gen, (m, b, w))
+                table = cpt.expand(b, -1)
+                calls = {
+                    "gather": lambda: nm_kernel.node_mux_gather_cuda(*kd, table, par,
+                                                                     n_bits=N_BITS),
+                    "pattern_table": lambda: nm_kernel.node_mux_cat_cuda(
+                        *kd, folded, par, cards=cards, n_bits=N_BITS),
+                    "rows": lambda: nm_kernel.node_mux_rows_cuda(*kd, table, par, n_bits=N_BITS),
+                }
+                if _int_err(calls["pattern_table"]()[0], calls["gather"]()):
+                    raise AssertionError(f"{scen}/{node} B={b}: the pattern-table route "
+                                         f"differs from the gather")
+                gather_bound = self._nm_bound(b, 2, m, N_BITS, cpt.numel() * 4)
+                hashed = _selected_leaf_words(par)
+                rows_bound = self._nm_bound(b, 2, m, N_BITS, cpt.numel() * 4, hashed)
+                row = {"node": f"{scen}/{node}", "parents": m, "rows": b,
+                       "gather_bound_ms": gather_bound[0], "rows_bound_ms": rows_bound[0],
+                       "bound_by": gather_bound[1], "rows_hashed_words": hashed}
+                for name, call in calls.items():
+                    row[f"{name}_ms"] = _device_ms(call)
+                if b == BATCH:
+                    def gather_plain():
+                        rand = _entropy(NM_KEY, (b,), N_BITS, 0)
+                        return node_mux_gather_ref(table, rand, par)
+
+                    def rows_plain():
+                        rand = _entropy(NM_KEY, (b, 1 << m), N_BITS, 0)
+                        return node_mux_ref(table, rand, par)
+
+                    row["gather_plain_ms"] = _event_ms(gather_plain, 3, warmup=1)
+                    row["rows_plain_ms"] = _event_ms(rows_plain, 3, warmup=1)
+                out[m][b] = row
+                ms = {k: f"{row[f'{k}_ms']:.4f}" for k in calls}
+                self.say(f"binary node {scen}/{node} ({m} parents) B={b} n_bits={N_BITS}, "
+                         f"device ms per launch: gather {ms['gather']} "
+                         f"({row['gather_ms'] / gather_bound[0]:.2f}x its bound "
+                         f"{gather_bound[0]:.4f}), pattern table {ms['pattern_table']}; rows "
+                         f"{ms['rows']} ({row['rows_ms'] / rows_bound[0]:.2f}x its bound "
+                         f"{rows_bound[0]:.4f})")
+                del par, table, calls
+        self.report["binary_timing"] = out
+
+    def sne_root_timing(self):
+        """sne_encode at the unfused path's root shape: B=1024 streams of 4096 bits."""
+        kd = rng.seed_words(NM_KEY)
+        p = torch.rand((BATCH,), generator=torch.Generator(device="cuda").manual_seed(47),
+                       device="cuda")
+        bound, by, ops, nbytes = self._op_bound("sne_encode", 1, BATCH, 1, N_BITS)
+
+        def launch():
+            return sne_kernel.sne_encode_cuda(*kd, p, n_bits=N_BITS)
+
+        def plain():
+            return sne_encode_ref(p, _entropy(NM_KEY, (BATCH,), N_BITS, 0))
+
+        row = {"rows": BATCH, "n_bits": N_BITS, "ms": _device_ms(launch),
+               "call_ms": _event_ms(launch, 50), "bound_ms": bound, "bound_by": by,
+               "ops": ops, "bytes": nbytes, "plain_ms": _event_ms(plain, 3, warmup=1)}
+        self.say(f"sne_encode at the unfused root shape (B={BATCH}, n_bits={N_BITS}): kernel "
+                 f"{row['ms']:.4f} ms/launch on the device, {row['call_ms']:.4f} ms per "
+                 f"back-to-back call, plain {row['plain_ms']:.3f} ms, bound {bound:.4f} ms "
+                 f"({by}; {row['ms'] / bound:.2f}x)")
+        return row
+
     def unfused_timing(self):
         kd = rng.seed_words(NM_KEY)
         gen = torch.Generator(device="cuda").manual_seed(41)
@@ -1300,7 +1487,8 @@ class Smoke:
                      + f"; unfused/fused {run_ms[n]['unfused'] / run_ms[n]['fused']:.1f}x; "
                      f"launches per unfused run {per_run[n]}")
         self.report["unfused_timing"] = {"kernels": table, "launches_per_run": per_run,
-                                         "run_ms": run_ms, "dispatch_ms": dispatch_ms}
+                                         "run_ms": run_ms, "dispatch_ms": dispatch_ms,
+                                         "sne_encode_root": self.sne_root_timing()}
 
 
 def main() -> int:
@@ -1308,29 +1496,41 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False -- this smoke run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    only = None
+    if sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3:
+        only = set(sys.argv[2].split(","))
+    elif sys.argv[1:]:
+        print("usage: chip_smoke.py [--phases name[,name...]]", file=sys.stderr)
+        return 2
     s = Smoke()
+
+    def run(name, *needs):
+        if (only is None or name in only) and not set(needs) & set(s.failures):
+            s.phase(name, getattr(s, name))
+
     s.phase("device", s.device)
-    s.phase("build", s.build)
-    if "build" not in s.failures:
-        s.phase("kernels", s.kernels)
-        s.phase("main_path", s.main_path)
-        s.phase("timing", s.timing)
-        s.phase("drain_trace", s.drain_trace)
-        s.phase("operators", s.operators)
-        if "operators" not in s.failures:
-            s.phase("operator_timing", s.operator_timing)
-        s.phase("unfused_kernels", s.unfused_kernels)
-        if "unfused_kernels" not in s.failures:
-            s.phase("unfused_path", s.unfused_path)
-        s.phase("wide_path", s.wide_path)
-        if "unfused_path" not in s.failures and "wide_path" not in s.failures:
-            s.phase("unfused_timing", s.unfused_timing)
+    run("build")
+    for name in ("kernels", "main_path", "timing", "binary_timing", "drain_trace", "operators"):
+        run(name, "build")
+    run("operator_timing", "build", "operators")
+    run("unfused_kernels", "build")
+    run("unfused_path", "build", "unfused_kernels")
+    run("wide_path", "build")
+    run("unfused_timing", "build", "unfused_path", "wide_path")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    s.report["profiler_dropped"] = PROFILER_DROPPED
+    print(f"torch.profiler: {len(PROFILER_DROPPED)} kernels timed, launches not recorded "
+          f"{sum(PROFILER_DROPPED)} of {50 * len(PROFILER_DROPPED)}, at most "
+          f"{max(PROFILER_DROPPED, default=0)} in a session")
     (out_dir / "chip_smoke.json").write_text(json.dumps(s.report, indent=1, default=str))
     if s.failures:
         print(f"chip_smoke: FAILED phases: {', '.join(s.failures)}", file=sys.stderr)
         return 1
+    if only is not None:
+        print(s.name_power)
+        print(json.dumps({name: s.report.get(name) for name in sorted(only)}, default=str))
+        return 0
     t = s.report["net_sweep"][TIMED_SCENARIO][BATCH]
     kernels = {"kernels": [{
         "name": "net_sweep",
@@ -1365,6 +1565,9 @@ def main() -> int:
         if name == "fusion_map":
             entry["composed_ms"] = line["composed_ms"]
             entry["full_composed_ms"] = full["composed_ms"]
+        if name == "sne_encode":
+            root = s.report["unfused_timing"]["sne_encode_root"]
+            entry.update(unfused_root_ms=root["ms"], unfused_root_bound_ms=root["bound_ms"])
         kernels["kernels"].append(entry)
     for name, sizes in s.report["unfused_timing"]["kernels"].items():
         wide = name in WIDE_KERNELS
@@ -1382,6 +1585,11 @@ def main() -> int:
         }
         if not wide:
             entry.update(ms_65536=sizes[NM_BIG]["ms"], bound_ms_65536=sizes[NM_BIG]["bound_ms"])
+        if name in ("node_mux_gather", "node_mux_rows"):   # per parent count, B=65,536
+            kind = name.split("_")[-1]
+            entry["by_parents_65536"] = {
+                m: {"ms": by_b[NM_BIG][f"{kind}_ms"], "bound_ms": by_b[NM_BIG][f"{kind}_bound_ms"]}
+                for m, by_b in s.report["binary_timing"].items()}
         kernels["kernels"].append(entry)
     print(f"net_sweep programs built in this run: {net_sweep_kernel.net_sweep_cuda.builds}")
     print(s.name_power)

@@ -7,10 +7,11 @@ tensor a kernel wrapper runs the kernel's plain torch version; on a CUDA
 tensor it launches the kernel or raises.
 
 **Builds.**  Each kernel is one ``.cu`` file with a plain C interface under
-its package's ``csrc/``.  :func:`load_library` compiles it with ``nvcc`` for
-``sm_90a`` into ``build/`` at the repository root (listed in ``.gitignore``)
-on first use, and loads it with ``ctypes``.  A library is rebuilt when its
-source changes (the file name carries a hash of the source and flags).
+its package's ``csrc/``, with the headers beside it.  :func:`load_library`
+compiles it with ``nvcc`` for ``sm_90a`` into ``build/`` at the repository
+root (listed in ``.gitignore``) on first use, and loads it with ``ctypes``.
+A library is rebuilt when its source or a header changes (the file name
+carries a hash of them and the flags).
 """
 
 from __future__ import annotations
@@ -70,10 +71,12 @@ def build_library(source: pathlib.Path, extra_flags=(), deps=()) -> tuple:
 
     ``-Xptxas -v`` is always passed, so the log reports each kernel's
     registers, shared memory and spills.  ``deps`` are the headers the source
-    includes: their text joins the hash that names the library.
+    includes from elsewhere; they and the headers beside the source join the
+    hash that names the library.
     """
     source = pathlib.Path(source)
     flags = NVCC_FLAGS + ("-Xptxas", "-v") + tuple(extra_flags)
+    deps = tuple(deps) + tuple(sorted(source.parent.glob("*.h")))
     text = source.read_bytes() + b"".join(pathlib.Path(d).read_bytes() for d in deps)
     digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()
     out = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"

@@ -40,9 +40,17 @@
 // broadcast table is ever copied.  Which kernel runs follows from the node's
 // shape alone:
 //
-//   * binary gather and rows, m <= 6 parents: templated on m, so the
-//     thresholds, parent words and the L = 2^m leaf words stay in registers
-//     and the select trees unroll.
+//   * binary gather and rows, m <= 6 parents: templated on m, with the
+//     per-word bodies in node_mux_body.h (shared with a host build that the
+//     CPU tests check).  Work is done per entropy word, for its 4 byte lanes
+//     at once: a nibble selector per entropy word, built from whole parent
+//     words, fetches the 4 positions' thresholds with one byte permute
+//     (PRMT) per 8-row group from two registers, one SWAR compare and one
+//     multiply place the 4 result bits.  A shared table is rounded and split
+//     into threshold bytes once per block, in shared memory.  Rows mode hashes
+//     only the entropy word of the row each position selects (m >= 2; 32
+//     hashes per output word against 8 L), or every row's words and a
+//     word-wide MUX where L <= 2 (nm_rows_selected).
 //   * cat, P <= 8 parent value bit-planes (node_mux_cat_kernel<P>): the host
 //     folds the mixed-radix decode (digits past a parent's cardinality read
 //     0) and the CDF rows into one pattern table of 2^P x (k-1) uint16
@@ -57,7 +65,7 @@
 //     cache.  Binary gather with more than 8 parents runs here as k = 2.
 //   * rows, m > 6 (node_mux_rows_wide_kernel): per position only the entropy
 //     word of the row the parents select is hashed, at most 32 hashes per
-//     output word where the templated kernel hashes 8 L.
+//     output word.
 //
 // Bound on H100.  Integer work: two lowbias32 rounds and the key XORs (18
 // operations) for each entropy word the function needs, plus one compare per
@@ -68,6 +76,8 @@
 #include <type_traits>
 
 #include <cuda_runtime.h>
+
+#include "node_mux_body.h"
 
 namespace {
 
@@ -81,31 +91,6 @@ struct WideShape {
   int n_parents;
   int card[MAX_WIDE];           // parent cardinalities, first parent first
 };
-
-__device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ uint32_t hash_word(uint32_t ctr, uint32_t kd0, uint32_t kd1) {
-  return lowbias32(lowbias32(ctr ^ kd0) ^ kd1);
-}
-
-// round(p * 256) clipped to [0, 256]; p * 256 is exact in float32.
-__device__ __forceinline__ uint32_t dac_threshold(float p) {
-  return (uint32_t)fminf(fmaxf(rintf(p * 256.0f), 0.0f), 256.0f);
-}
-
-// Counter of entropy word 0 of output word w: (base_row * n_rand + 8 w) mod 2^32 + offset.
-__device__ __forceinline__ uint32_t first_counter(unsigned long long base_row,
-                                                  unsigned long long n_rand, int w,
-                                                  uint32_t offset) {
-  return (uint32_t)(base_row * n_rand + 8ull * (unsigned long long)w) + offset;
-}
 
 __host__ __device__ constexpr int value_bits(int k) {
   int b = 0;
@@ -138,88 +123,49 @@ __device__ __forceinline__ void store_values(const uint32_t (&acc)[MAX_VB], int 
   }
 }
 
+// The thresholds of a table shared by every row, rounded and split once per
+// block: thread i writes the bytes of row i (rows past 2^M read 0).
 template <int M>
-__global__ void node_mux_gather_kernel(const float* __restrict__ cpt, long long cpt_stride,
+__device__ __forceinline__ NmThr<M> stage_thresholds(const float* __restrict__ cpt) {
+  constexpr int G = NmThr<M>::G;
+  __shared__ uint32_t s_thr[4 * G];     // hi words, then lo words
+  uint8_t* bytes = reinterpret_cast<uint8_t*>(s_thr);
+  for (int i = threadIdx.x; i < 8 * G; i += blockDim.x) {
+    const uint32_t thr = i < (1 << M) ? nm_dac_threshold(cpt[i]) : 0u;
+    bytes[i] = (uint8_t)nm_hi_byte(thr);
+    bytes[8 * G + i] = (uint8_t)nm_lo_byte(thr);
+  }
+  __syncthreads();
+  NmThr<M> t;
+#pragma unroll
+  for (int i = 0; i < 2 * G; ++i) {
+    t.hi[i] = s_thr[i];
+    t.lo[i] = s_thr[2 * G + i];
+  }
+  return t;
+}
+
+// Binary gather (ROWS false) or row encode (ROWS true; SELECTED hashes only
+// the selected rows' words), one thread per output word.
+template <int M, bool ROWS, bool SELECTED>
+__global__ void node_mux_binary_kernel(const float* __restrict__ cpt, long long cpt_stride,
                                        const uint32_t* __restrict__ parents,
                                        uint32_t* __restrict__ out, long long n_rows,
                                        int n_out, uint32_t kd0, uint32_t kd1,
                                        uint32_t offset) {
-  constexpr int L = 1 << M;
+  NmThr<M> shared{};
+  if (cpt_stride == 0) shared = stage_thresholds<M>(cpt);
   const long long total = n_rows * (long long)n_out;
-  const unsigned long long n_rand = 8ull * (unsigned long long)n_out;
   for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < total;
        t += (long long)gridDim.x * blockDim.x) {
     const long long r = t / n_out;
     const int w = (int)(t - r * n_out);
-    uint32_t thr[L];
-#pragma unroll
-    for (int l = 0; l < L; ++l) thr[l] = dac_threshold(cpt[r * cpt_stride + l]);
-    uint32_t par[M > 0 ? M : 1];
-#pragma unroll
-    for (int i = 0; i < M; ++i) par[i] = parents[((long long)i * n_rows + r) * n_out + w];
-    const uint32_t ctr0 = first_counter((unsigned long long)r, n_rand, w, offset);
-    uint32_t word = 0;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const uint32_t x = hash_word(ctr0 + (uint32_t)e, kd0, kd1);
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int pos = 4 * e + b;
-        // select tree over the thresholds, last parent first
-        uint32_t lv[L];
-#pragma unroll
-        for (int l = 0; l < L; ++l) lv[l] = thr[l];
-#pragma unroll
-        for (int j = M - 1; j >= 0; --j) {
-          const bool bit = (par[j] >> pos) & 1u;
-#pragma unroll
-          for (int i = 0; i < (1 << j); ++i) lv[i] = bit ? lv[2 * i + 1] : lv[2 * i];
-        }
-        word |= (uint32_t)(((x >> (8 * b)) & 0xFFu) < lv[0]) << pos;
-      }
+    const NmThr<M> thr = cpt_stride == 0 ? shared : nm_thresholds<M>(cpt + r * cpt_stride);
+    if constexpr (ROWS) {
+      out[t] = nm_rows_item<M, SELECTED>(thr, parents, n_rows, n_out, r, w, kd0, kd1, offset);
+    } else {
+      out[t] = nm_gather_item<M>(thr, parents, n_rows, n_out, r, w, kd0, kd1, offset);
     }
-    out[t] = word;
-  }
-}
-
-template <int M>
-__global__ void node_mux_rows_kernel(const float* __restrict__ cpt, long long cpt_stride,
-                                     const uint32_t* __restrict__ parents,
-                                     uint32_t* __restrict__ out, long long n_rows,
-                                     int n_out, uint32_t kd0, uint32_t kd1,
-                                     uint32_t offset) {
-  constexpr int L = 1 << M;
-  const long long total = n_rows * (long long)n_out;
-  const unsigned long long n_rand = 8ull * (unsigned long long)n_out;
-  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < total;
-       t += (long long)gridDim.x * blockDim.x) {
-    const long long r = t / n_out;
-    const int w = (int)(t - r * n_out);
-    uint32_t leaf[L];
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      const uint32_t thr = dac_threshold(cpt[r * cpt_stride + l]);
-      const uint32_t ctr0 =
-          first_counter((unsigned long long)r * L + (unsigned long long)l, n_rand, w, offset);
-      uint32_t word = 0;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const uint32_t x = hash_word(ctr0 + (uint32_t)e, kd0, kd1);
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          word |= (uint32_t)(((x >> (8 * b)) & 0xFFu) < thr) << (4 * e + b);
-        }
-      }
-      leaf[l] = word;
-    }
-    // value-select MUX tree over the leaf words, last parent first
-#pragma unroll
-    for (int j = M - 1; j >= 0; --j) {
-      const uint32_t s = parents[((long long)j * n_rows + r) * n_out + w];
-#pragma unroll
-      for (int i = 0; i < (1 << j); ++i) leaf[i] = (s & leaf[2 * i + 1]) | (~s & leaf[2 * i]);
-    }
-    out[t] = leaf[0];
   }
 }
 
@@ -249,13 +195,13 @@ __global__ void node_mux_cat_kernel(const uint16_t* __restrict__ tab, long long 
 #pragma unroll
     for (int i = 0; i < P; ++i) par[i] = parents[((long long)i * n_rows + r) * n_out + w];
     const uint16_t* row = staged ? s_tab : tab + r * tab_stride;
-    const uint32_t ctr0 = first_counter((unsigned long long)r, n_rand, w, offset);
+    const uint32_t ctr0 = nm_first_counter((unsigned long long)r, n_rand, w, offset);
     uint32_t acc[MAX_VB];
 #pragma unroll
     for (int v = 0; v < MAX_VB; ++v) acc[v] = 0u;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      const uint32_t x = hash_word(ctr0 + (uint32_t)e, kd0, kd1);
+      const uint32_t x = nm_hash(ctr0 + (uint32_t)e, kd0, kd1);
       uint32_t cw = 0;                      // the 4 positions' values, one per byte
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
@@ -311,13 +257,13 @@ __global__ void node_mux_cat_wide_kernel(const uint32_t* __restrict__ cdf, long 
       for (int pos = 0; pos < 32; ++pos) idx[pos] = idx[pos] * card + (d[pos] < card ? d[pos] : 0u);
     }
     const uint32_t* row = cdf + r * cdf_stride;
-    const uint32_t ctr0 = first_counter((unsigned long long)r, n_rand, w, offset);
+    const uint32_t ctr0 = nm_first_counter((unsigned long long)r, n_rand, w, offset);
     uint32_t acc[MAX_VB];
 #pragma unroll
     for (int v = 0; v < MAX_VB; ++v) acc[v] = 0u;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      const uint32_t x = hash_word(ctr0 + (uint32_t)e, kd0, kd1);
+      const uint32_t x = nm_hash(ctr0 + (uint32_t)e, kd0, kd1);
       uint32_t cw = 0;
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
@@ -359,10 +305,10 @@ __global__ void node_mux_rows_wide_kernel(const float* __restrict__ cpt, long lo
     uint32_t word = 0;
 #pragma unroll
     for (int pos = 0; pos < 32; ++pos) {
-      const uint32_t ctr = first_counter((unsigned long long)r * L + l[pos], n_rand, w, offset)
+      const uint32_t ctr = nm_first_counter((unsigned long long)r * L + l[pos], n_rand, w, offset)
                            + (uint32_t)(pos >> 2);
-      const uint32_t x = hash_word(ctr, kd0, kd1);
-      const uint32_t thr = dac_threshold(__ldg(row + l[pos]));
+      const uint32_t x = nm_hash(ctr, kd0, kd1);
+      const uint32_t thr = nm_dac_threshold(__ldg(row + l[pos]));
       word |= (uint32_t)(((x >> (8 * (pos & 3))) & 0xFFu) < thr) << pos;
     }
     out[t] = word;
@@ -403,7 +349,7 @@ extern "C" int node_mux_gather_launch(const void* cpt, long long cpt_stride, con
                                       unsigned int kd0, unsigned int kd1, unsigned int offset,
                                       int threads, void* stream) {
   return dispatch<MAX_M>(m, [&](auto mc) {
-    node_mux_gather_kernel<decltype(mc)::value>
+    node_mux_binary_kernel<decltype(mc)::value, false, false>
         <<<grid_for(n_rows * n_out, threads), threads, 0, (cudaStream_t)stream>>>(
             (const float*)cpt, cpt_stride, (const uint32_t*)parents, (uint32_t*)out, n_rows,
             n_out, kd0, kd1, offset);
@@ -416,7 +362,8 @@ extern "C" int node_mux_rows_launch(const void* cpt, long long cpt_stride, const
                                     unsigned int kd0, unsigned int kd1, unsigned int offset,
                                     int threads, void* stream) {
   return dispatch<MAX_M>(m, [&](auto mc) {
-    node_mux_rows_kernel<decltype(mc)::value>
+    constexpr int M = decltype(mc)::value;
+    node_mux_binary_kernel<M, true, nm_rows_selected(M)>
         <<<grid_for(n_rows * n_out, threads), threads, 0, (cudaStream_t)stream>>>(
             (const float*)cpt, cpt_stride, (const uint32_t*)parents, (uint32_t*)out, n_rows,
             n_out, kd0, kd1, offset);

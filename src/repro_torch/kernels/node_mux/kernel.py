@@ -10,12 +10,16 @@ The node's shape picks the kernel before the launch, and each path is its
 own wrapper with its own ``.launches`` count:
 
 * ``node_mux_gather_cuda`` / ``node_mux_rows_cuda``: at most
-  ``MAX_PARENTS`` binary parents, kernels templated on the parent count.
-  A wider gather runs on the categorical kernels at k = 2 (on
-  ``ref.binary_cat_table``, which rounds the CPT exactly as the gather
-  kernel does; a compiled network folds it once), a wider row encode on
-  ``node_mux_rows_wide_cuda`` (hashes only the entropy word of the row the
-  parents select).
+  ``MAX_PARENTS`` binary parents, one kernel templated on the parent count
+  whose per-word bodies live in ``csrc/node_mux_body.h``.  Per entropy word
+  it builds a nibble selector of the 4 positions' CPT rows from whole parent
+  words, fetches their thresholds with byte permutes from registers (a shared
+  table is rounded once per block), compares the 4 bytes in one SWAR step
+  and packs them with one multiply; row-encode hashes only the entropy word
+  of the row each position selects (from 2 parents on).  A wider gather runs
+  on the categorical kernels at k = 2 (on ``ref.binary_cat_table``, which
+  rounds the CPT exactly as the gather kernel does; a compiled network folds
+  it once), a wider row encode on ``node_mux_rows_wide_cuda``.
 * ``node_mux_cat_cuda``: the pattern-table kernel for at most
   ``ref.PATTERN_PLANES`` parent bit-planes; wider nodes go to
   ``node_mux_cat_wide_cuda``, which decodes the digits at run time.

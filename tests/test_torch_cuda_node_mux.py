@@ -9,9 +9,9 @@ reference package, so it runs on the machine with the card:
 Each kernel is held bit for bit against its plain torch version, which
 ``test_torch_node_mux.py`` and ``test_torch_wide_nodes.py`` hold against the
 JAX reference on the CPU, on entropy words drawn at the kernel's counter
-origin: the templated binary kernels at 0-6 parents, their wide paths at 7
-and 8, the categorical pattern-table kernel at 0-5 parent planes and its
-wide path above 8 planes and 16 parents.  Then the unfused program on the
+origin: the templated binary kernels at 0-6 parents, per-row and shared
+tables, their wide paths at 7 and 8, the categorical pattern-table kernel at
+0-6 parent planes and its wide path above 8 planes and 16 parents.  Then the unfused program on the
 card against the same program compiled for the CPU, networks with 7- and
 8-parent nodes included.
 """
@@ -59,23 +59,46 @@ def _entropy(shape, n_bits, offset, dev):
                                   offset=offset, device=dev)
 
 
-@pytest.mark.parametrize("m", [0, 1, 2, 3, 6])
+def _shared_rows(m, dev):
+    """(L,) shared CPT rows that together hold 0, 256 (also clipped from
+    outside [0, 1]), 128 and the half steps (2k+1)/512: one row once L holds
+    them all, else as many rows as they need."""
+    edge = torch.tensor([0.0, 1.0, 0.5, 1 / 512, 3 / 512, 255 / 512, 257 / 512, 511 / 512,
+                         1.5, -0.25])
+    n_leaves = 1 << m
+    fill = torch.from_numpy(np.random.default_rng(m).random(n_leaves).astype(np.float32))
+    rows = []
+    for i in range(0, edge.numel(), n_leaves):
+        row = fill.clone()
+        chunk = edge[i:i + n_leaves]
+        row[: chunk.numel()] = chunk
+        rows.append(row.to(dev))
+    return rows
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per-row", "shared"])
+@pytest.mark.parametrize("m", range(7))
 @pytest.mark.parametrize("rows,n_bits,offset", [(300, 256, 0), (1000, 4096, WRAP), (7, 32, 5)])
-def test_gather_and_rows_kernels_equal_plain(cuda_device, m, rows, n_bits, offset):
-    cpt = _cpt(m, rows, 1 << m, cuda_device)
+def test_gather_and_rows_kernels_equal_plain(cuda_device, m, rows, n_bits, offset, shared):
     par = _words(m + 1, (m, rows, n_bits // 32), cuda_device)
-    got = K.node_mux_gather_cuda(*KD, cpt, par, n_bits=n_bits, offset=offset)
-    want = ref.node_mux_gather_ref(cpt, _entropy((rows,), n_bits, offset, cuda_device), par)
-    assert torch.equal(got, want)
-    got = K.node_mux_rows_cuda(*KD, cpt, par, n_bits=n_bits, offset=offset)
-    want = ref.node_mux_ref(cpt, _entropy((rows, 1 << m), n_bits, offset, cuda_device), par)
-    assert torch.equal(got, want)
+    # one shared row for every row is passed with stride 0, as a compiled network passes it
+    tables = [t.expand(rows, -1) for t in _shared_rows(m, cuda_device)] if shared \
+        else [_cpt(m, rows, 1 << m, cuda_device)]
+    for cpt in tables:
+        got = K.node_mux_gather_cuda(*KD, cpt, par, n_bits=n_bits, offset=offset)
+        want = ref.node_mux_gather_ref(cpt, _entropy((rows,), n_bits, offset, cuda_device), par)
+        assert torch.equal(got, want)
+        got = K.node_mux_rows_cuda(*KD, cpt, par, n_bits=n_bits, offset=offset)
+        want = ref.node_mux_ref(cpt, _entropy((rows, 1 << m), n_bits, offset, cuda_device), par)
+        assert torch.equal(got, want)
 
 
-# P = 0..5 parent planes, then wide nodes: 9 planes (above the pattern
-# table's 8) and 17 parents (above the former cap of 16 parents)
+# P = 0..6 parent planes (6 binary parents at k = 2: a 6-parent gather's
+# pattern-table route), then wide nodes: 9 planes (above the pattern table's
+# 8) and 17 parents (above the former cap of 16 parents)
 CAT_CASES = [(3, ()), (4, ()), (2, (3,)), (3, (2, 3)), (4, (4, 2)), (3, (4, 2, 3)),
-             (5, (2, 2, 2, 2)), (2, (3, 2, 2, 2)), (3, (2,) * 9), (3, (2,) * 17)]
+             (5, (2, 2, 2, 2)), (2, (3, 2, 2, 2)), (2, (2,) * 6), (3, (2,) * 9),
+             (3, (2,) * 17)]
 
 
 @pytest.mark.parametrize("shared", [False, True], ids=["per-row", "shared"])
