@@ -11,7 +11,8 @@ Phases (any failure makes the script exit non-zero without the result line):
               one generated ``net_sweep`` program per plan the run launches
               (``kernels/net_sweep/codegen.py``) -- and prints ``-Xptxas -v``
               (registers, spills), the nvcc seconds of each program and its
-              integer instructions in ``cuobjdump -sass``.
+              integer instructions in ``cuobjdump -sass`` (for the two SNE
+              kernels also per copy of the hash, beside the counted least).
 3. kernels -- each generated ``net_sweep`` against its plain torch version on
               the card, bit for bit: all 7 scenarios at n_bits=4096, B=1024,
               decide off and on; nominal noise with 3 drift epochs; a
@@ -46,8 +47,10 @@ Phases (any failure makes the script exit non-zero without the result line):
 8. operators -- the paper's fusion operators.  Each of ``sne_encode``,
               ``pand_popcount``, ``bayes_decide`` and ``fusion_map`` against
               its plain torch version on the card (bit for bit; fusion_map
-              within atol 2e-6, rtol 1e-5) at M 1..3, K 2 and 16, row counts
-              off the block grid and counter origins that wrap 2**32.  Then
+              within atol 2e-6, rtol 1e-5) at M 1..3, K 1, 2, 8, 16 and 33,
+              one row, row counts off the block grid, the unfused root
+              (1024 rows of 4096 bits), the bench_latency and bayes_head
+              shapes, and counter origins that wrap 2**32.  Then
               the operator path through its entry points, counts reset just
               before and read just after: the full ``paper-bayes-fusion``
               batch (M=2, K=16, 8 frames of 1080x1920, 128 bits) through
@@ -58,11 +61,19 @@ Phases (any failure makes the script exit non-zero without the result line):
               decision (4096 decisions, M=K=2, 128 bits: fused, composed,
               ``bayes_decide_packed``); and the ``obstacle_fusion`` example
               flow at 64x64.
-9. operator_timing -- CUDA-event times per launch of the four kernels at the
-              full batch and at a 65,536-pixel slice of it, beside their plain
+9. operator_timing -- device time per launch (``torch.profiler``, the L2
+              flushed before each launch) and per back-to-back call (CUDA
+              events) of the four kernels at the full batch and at a
+              65,536-pixel slice of it, beside their plain
               versions (slice only: the plain versions do not fit at full
               size), their bounds, and the composed torch expression for
-              ``fusion_map``.
+              ``fusion_map``; then the encoders where a launch is small:
+              ``sne_encode`` at the unfused root (1024 rows of 4096 bits) and
+              the shared-entropy root (one row), ``bayes_decide`` at the
+              ``bench_latency`` decision and a ``bayes_head`` batch.  The SNE
+              bound counts the shared body's least integer work per entropy
+              word, logic on the 64 ALU lanes of an SM and multiplies and
+              adds free to use all 128, as ``net_sweep``'s.
 10. unfused_kernels -- the ``node_mux`` kernels against their plain versions
               on the card, bit for bit: gather and rows at 0 to 6 parents
               (per-row tables and shared rows holding thresholds 0, 128, 256
@@ -92,8 +103,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               node_mux kernels at B=1024 and B=65,536 (n_bits=4096; the wide
               paths at B=256) beside their plain versions and bounds; launches
               of each kernel per unfused ``run`` of each scenario; wall time per
-              1024-frame batch of the unfused, shared and fused programs;
-              ``sne_encode`` at the unfused root shape.
+              1024-frame batch of the unfused, shared and fused programs.
 
 Before the last line it prints the ``nvidia-smi`` name/power-limit line and a
 ``{"kernels": [...]}`` JSON line; the last line is
@@ -185,15 +195,32 @@ SASS_MULADD = {"IMAD", "IADD3", "IADD", "LEA", "VIADD", "IMUL"}
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM HBM3 (NVIDIA data sheet)
 TIMED_SCENARIO = "intersection"       # the largest network: the kernels line's numbers
 F32_FLOPS_PER_S = 67e12               # H100 SXM float32 outside the tensor cores (data sheet)
-# The least integer work per entropy word of sne_encode / bayes_decide: two
-# lowbias32 rounds (3 shifts, 3 XORs, 2 multiplies each) and the two key XORs
-# (18), plus one compare per comparator byte (4).  Packing, the AND across
-# modalities and the popcount come on top and are not counted.
-OPS_PER_ENTROPY_WORD = 22
+# The least integer work per entropy word of sne_encode / bayes_decide (their
+# shared body, kernels/sne_encode/csrc/sne_body.h), counted as net_sweep's: a
+# cone of logic over at most three values is one LOP3.  On the ALU alone (15):
+# the hash's 6 shifts and 6 3-input XORs (both keys fold into them), the
+# compare's OR and one combining cone (at a row's threshold class; the kernels
+# take one more to serve both classes without a branch), and the pack's funnel
+# shift.  Multiply or add (7, either pipe): the hash's 4 multiplies and the
+# counter's add, the compare's subtract, the pack's multiply.
+SNE_ALU_OPS, SNE_MULADD_OPS = 15, 7
+# node_mux's bound per entropy word it needs: the hash's 18 operations, all
+# charged to the ALU lanes
+NM_HASH_OPS = 18
+SNE_HASH_CONST = "0x7feb352d"         # each hash multiplies by it twice: counts hash copies in SASS
 OP_KEY = np.array([0x2545F497, 0x7F4A7C15], np.uint32)      # seed words of the operator runs
 OP_SLICE = 4096                       # pixels per slice held against the plain versions
 LINE_PIXELS = 65536                   # the kernels line: a slice of the full batch
 LAT_DECISIONS, LAT_BITS = 4096, 128   # bench_latency's decision workload (M = K = 2)
+# a bayes_head batch: 64 tokens, its top 8 classes, two modalities, 256 bits
+HEAD_TOKENS, HEAD_CLASSES, HEAD_BITS = 64, 8, 256
+# (kernel, name, (M, R, K, n_bits)): the encoders where a launch is small --
+# the unfused path's binary root (1024 rows of 4096 bits) and its shared-entropy
+# root (one row), bench_latency's decision and a bayes_head batch
+ENCODER_SHAPES = (("sne_encode", "unfused_root", (1, BATCH, 1, N_BITS)),
+                  ("sne_encode", "shared_root", (1, 1, 1, N_BITS)),
+                  ("bayes_decide", "latency", (2, LAT_DECISIONS, 2, LAT_BITS)),
+                  ("bayes_decide", "head", (2, HEAD_TOKENS, HEAD_CLASSES, HEAD_BITS)))
 FM_ATOL, FM_RTOL = 2e-6, 1e-5         # fusion_map: card logf/expf vs torch log/exp
 NM_KEY = np.array([0x85EBCA6B, 0x3C6EF372], np.uint32)     # seed words of the node_mux checks
 NM_WRAP = 2**32 - 5000                # a counter origin whose draws wrap 2**32
@@ -248,9 +275,10 @@ def _spec(name):
     return wide_spec(tbn, 7, n_cls=9) if name.startswith("wide") else by_name(name)
 
 
-def _sass_counts(library, kernel):
+def _sass_counts(library, kernel, marker=None):
     """{mangled function: Counter of SASS opcodes} of the functions whose name
-    holds ``kernel`` in one built library (``cuobjdump -sass``)."""
+    holds ``kernel`` in one built library (``cuobjdump -sass``); with
+    ``marker``, the count of instructions holding it under the key ``marker``."""
     tool = pathlib.Path(backend.nvcc_path()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
                          timeout=300, check=True).stdout
@@ -263,6 +291,8 @@ def _sass_counts(library, kernel):
         m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
         if ops is not None and m:
             ops[m.group(1)] += 1
+            if marker is not None and marker in line:
+                ops[marker] += 1
     if not funcs:
         raise AssertionError(f"no {kernel} SASS in {library}")
     return funcs
@@ -280,6 +310,20 @@ def _sass_ops(library):
     count epilogue around it."""
     return _int_split(sum(_sass_counts(library, "net_sweep_kernel").values(),
                           collections.Counter()))
+
+
+def _sne_sass(library, kernel):
+    """Static SASS counts of one SNE kernel: {"alu":, "muladd":, "total":,
+    "hash_copies":, "alu_per_hash":, "muladd_per_hash":}.  A hash copy is two
+    multiplies by SNE_HASH_CONST; the per-hash counts divide the whole
+    kernel's (its item loop and indexing included) by the copies, so they read
+    high by that overhead."""
+    ops = sum(_sass_counts(library, kernel, SNE_HASH_CONST).values(), collections.Counter())
+    alu, muladd = _int_split(ops)
+    copies = ops[SNE_HASH_CONST] // 2
+    return {"alu": alu, "muladd": muladd, "total": sum(ops.values()) - ops[SNE_HASH_CONST],
+            "hash_copies": copies, "alu_per_hash": alu / copies if copies else None,
+            "muladd_per_hash": muladd / copies if copies else None}
 
 
 def _node_mux_sass(library):
@@ -340,9 +384,18 @@ def _event_ms(fn, reps, warmup=2):
 
 
 PROFILER_DROPPED = []       # per timed kernel: launches a torch.profiler session did not record
+L2_BYTES = 50 * 2**20       # H100 L2 cache (NVIDIA data sheet)
+_L2_SCRATCH = []
 
 
-def _device_ms(fn, reps=50, warmup=2, tries=5):
+def _flush_l2():
+    """Write twice the L2's size, so that the next launch reads its inputs from HBM."""
+    if not _L2_SCRATCH:
+        _L2_SCRATCH.append(torch.empty(2 * L2_BYTES // 4, dtype=torch.int32, device="cuda"))
+    _L2_SCRATCH[0].fill_(1)
+
+
+def _device_ms(fn, reps=50, warmup=2, tries=5, kernel=None, cold=False):
     """Device time of the one kernel ``fn`` launches, per launch: the mean
     duration of its launches in a torch.profiler session of ``reps`` calls.
     Unlike :func:`_event_ms` it leaves out the host's cost of a launch,
@@ -353,26 +406,36 @@ def _device_ms(fn, reps=50, warmup=2, tries=5):
     in most sessions once the unfused and wide phases have run, at times
     all), and a sum over the session would then read low.  So this takes the mean over the launches
     it recorded, checks that every recorded activity is that one kernel
-    (one call launches exactly one, by the wrappers' launch counts), and
+    (one call launches exactly one, by the wrappers' launch counts; with
+    ``kernel``, only activities whose name holds it are read, and the torch
+    ops a wrapper runs around its launch are left out), and
     runs a session again, ``tries`` in all, when it recorded fewer than half
     of them.  ``PROFILER_DROPPED`` keeps the number dropped per timed
-    kernel."""
+    kernel.  With ``cold`` (and ``kernel``), every launch follows a write of
+    twice the L2's size, so that it reads its inputs from HBM as the bytes
+    bound assumes."""
     from torch.profiler import ProfilerActivity, profile
 
     before = sum(_launches().values())
     fn()
     if sum(_launches().values()) - before != 1:
         raise AssertionError("a timed call must launch exactly one kernel of the port")
+    if cold and kernel is None:
+        raise ValueError("a cold timing names its kernel: the L2 flush is a kernel too")
+    flush = _flush_l2 if cold else (lambda: None)
     for _ in range(warmup):
+        flush()
         fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
+                flush()
                 fn()
             torch.cuda.synchronize()
         spans = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and (kernel is None or kernel in e.name)]
         names = {name for name, _ in spans}
         if len(names) > 1 or len(spans) > reps:
             raise AssertionError(f"the timed call put more than its kernel on the card: "
@@ -599,7 +662,8 @@ class Smoke:
         plans = {_plan(n, noise, ep) for n, noise, ep, *_ in self._kernel_cases()}
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES) + len(plans)) as pool:
-            libs = {name: pool.submit(backend.build_library, mod.SOURCE)
+            libs = {name: pool.submit(backend.build_library, mod.SOURCE,
+                                      deps=getattr(mod, "DEPS", ()))
                     for name, mod in LIBRARIES.items()}
             progs = pool.submit(net_sweep_kernel.prepare, sorted(plans, key=repr))
             built = {name: f.result() for name, f in libs.items()}
@@ -616,6 +680,18 @@ class Smoke:
                       f"{c['imad']} IMAD)", flush=True)
         except (OSError, subprocess.SubprocessError, AssertionError) as e:
             print(f"node_mux SASS not counted ({type(e).__name__}: {e})", flush=True)
+        sne_sass = self.report["sne_sass"] = {}
+        for name in ("sne_encode", "bayes_decide"):
+            try:
+                c = sne_sass[name] = _sne_sass(built[name][0], f"{name}_kernel")
+                per = "not counted (no hash copy found)" if not c["hash_copies"] else \
+                    f"{c['alu_per_hash']:.1f} ALU + {c['muladd_per_hash']:.1f} multiply/add"
+                print(f"{name}_kernel: SASS {c['total']} instructions, integer {c['alu']} "
+                      f"ALU-only + {c['muladd']} multiply/add, {c['hash_copies']} hash copies; "
+                      f"per copy {per}; counted least per entropy word {SNE_ALU_OPS} ALU + "
+                      f"{SNE_MULADD_OPS} multiply/add", flush=True)
+            except (OSError, subprocess.SubprocessError, AssertionError) as e:
+                print(f"{name} SASS not counted ({type(e).__name__}: {e})", flush=True)
         programs = dict(net_sweep_kernel.BUILDS)
         self.sass = {}
         for info in programs.values():
@@ -877,13 +953,20 @@ class Smoke:
         kd = rng.seed_words(OP_KEY)
         edge = torch.tensor([0.0, 1.0, 1.5, -0.2, 1 / 512, 3 / 512, 255 / 512, 511 / 512],
                             device="cuda")
-        # (M, rows off the block grid, K, n_bits, counter origin)
+        # (M, rows off the block grid, K, n_bits, counter origin); then one row
+        # and the unfused root's 1024 rows of 4096 bits, bench_latency's
+        # decision, a bayes_head batch (64 tokens, top 8 classes), and K = 33
         cases = [(1, 4099, 2, 128, 0), (2, 4099, 16, 128, 0), (3, 1000, 16, 64, 0),
-                 (2, 257, 2, 256, 2**32 - 1000), (3, 333, 16, 96, 2**32 - 5000)]
+                 (2, 257, 2, 256, 2**32 - 1000), (3, 333, 16, 96, 2**32 - 5000),
+                 (1, 1, 1, N_BITS, 2**32 - 100), (1, BATCH, 1, N_BITS, 0),
+                 (2, LAT_DECISIONS, 2, LAT_BITS, 0), (2, HEAD_TOKENS, HEAD_CLASSES, HEAD_BITS, 0),
+                 (3, 100, 33, 128, 2**32 - 3000)]
         for m, r, k, n_bits, offset in cases:
             p = torch.rand((m, r, k), generator=gen, device="cuda")
-            p[:, 1] = 0.0                             # every class ties at count 0
-            p.view(-1)[: edge.numel()] = edge         # clipped values and DAC half steps
+            if r > 1:
+                p[:, 1] = 0.0                         # every class ties at count 0
+            n = min(p.numel(), edge.numel())
+            p.view(-1)[:n] = edge[:n]                 # clipped values and DAC half steps
             prior = torch.rand(k, generator=gen, device="cuda") + 0.1
             prior /= prior.sum()
             rand = _entropy(OP_KEY, (m, r, k), n_bits, offset)
@@ -899,8 +982,9 @@ class Smoke:
                 counts, pand_popcount_ref(words.view(m, r * k, -1))))
             self._note("bayes_decide", max(_int_err(dec, want_dec), _int_err(cnt, want_cnt)))
             self._note("fusion_map", _float_err(fused, fusion_map_ref(p, prior)))
-        print(f"operators: {len(cases)} cases (M 1..3, K 2/16, rows off the block grid, "
-              f"counter origins wrapping 2**32) equal to the plain versions: max abs err "
+        print(f"operators: {len(cases)} cases (M 1..3, K 1/2/8/16/33, one row, rows off the "
+              f"block grid, the unfused root, bench_latency and bayes_head shapes, counter "
+              f"origins wrapping 2**32) equal to the plain versions: max abs err "
               f"{self.op_err} (tolerance 0 for the integer kernels; fusion_map atol "
               f"{FM_ATOL}, rtol {FM_RTOL})", flush=True)
 
@@ -1002,26 +1086,61 @@ class Smoke:
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         }
 
-    def _op_bound(self, name, m, px, k, n_bits):
-        """(bound ms, what sets it, operations, bytes) of one launch."""
-        w = n_bits // 32
-        rate = self.int32_ops_per_s
-        if name == "sne_encode":
-            rows = m * px * k
-            ops, nbytes = rows * (n_bits // 4) * OPS_PER_ENTROPY_WORD, 4 * rows * (1 + w)
-        elif name == "pand_popcount":
-            rows = px * k
-            ops, nbytes = rows * w * (m + 1), 4 * rows * (m * w + 1)   # ANDs, popcount, add
-        elif name == "bayes_decide":
-            ops = m * px * k * (n_bits // 4) * OPS_PER_ENTROPY_WORD
-            nbytes = 4 * (m * px * k + px * k + px)
-        else:   # fusion_map: clip, log, add per input; sub, max, exp, add, divide per output
-            ops, nbytes = 4 * m * px * k + 5 * px * k, 4 * (m * px * k + k + px * k)
-            rate = F32_FLOPS_PER_S
-        op_ms, byte_ms = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        return max(op_ms, byte_ms), ("operations" if op_ms >= byte_ms else "bytes"), ops, nbytes
+    def _int_ms(self, alu, muladd):
+        """Least ms for ``alu`` operations only the 64 ALU lanes of an SM run and
+        ``muladd`` that may also use the other 64 (net_sweep's yardstick)."""
+        clocks = max(alu / INT32_LANES_PER_SM, (alu + muladd) / DISPATCH_LANES_PER_SM)
+        return clocks / (self.n_sm * self.max_clock_mhz * 1e6) * 1e3
+
+    def _op_bound(self, name, p, n_bits):
+        """(bound ms, what sets it, operations, bytes, share of streams hashed)
+        of one launch on p (M, R, K).  The encoders' work is counted for the
+        streams these inputs need: a threshold of 0 or 256 gives all-zero or
+        all-one words with no hash, and bayes_decide needs no word of an
+        (r, k) stream that a modality holds at 0."""
+        m, px, k = p.shape
+        w, hashed = n_bits // 32, None
+        if name in ("sne_encode", "bayes_decide"):
+            t = torch.clamp(torch.round(p * 256), 0, 256)
+            live = (t > 0) & (t < 256)                  # streams whose words are hashed
+            if name == "bayes_decide":
+                live &= ~(t == 0).any(0)
+            streams = int(live.sum())
+            hashed = streams / p.numel()
+            words = streams * (n_bits // 4)             # entropy words, one hash each
+            alu, muladd = words * SNE_ALU_OPS, words * SNE_MULADD_OPS
+            if name == "sne_encode":
+                nbytes = 4 * m * px * k * (1 + w)
+            else:   # per word of a stream with M' hashed modalities: M' - 1 ANDs and a
+                # popcount, and an add; per class: the argmax's compare and select
+                alu += w * streams + 2 * px * k
+                muladd += w * int(live.any(0).sum())
+                nbytes = 4 * (m * px * k + px * k + px)
+            del t, live
+            ops, op_ms = alu + muladd, self._int_ms(alu, muladd)
+        else:
+            if name == "pand_popcount":
+                rows = px * k
+                ops, nbytes = rows * w * (m + 1), 4 * rows * (m * w + 1)   # ANDs, popcount, add
+                rate = self.int32_ops_per_s
+            else:   # fusion_map: clip, log, add per input; sub, max, exp, add, divide per output
+                ops, nbytes = 4 * m * px * k + 5 * px * k, 4 * (m * px * k + k + px * k)
+                rate = F32_FLOPS_PER_S
+            op_ms = ops / rate * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes", ops, nbytes,
+                hashed)
 
     def operator_timing(self):
+        """The four operator kernels at the full paper-bayes-fusion batch and at
+        its first 65,536 pixels, then the encoders where a launch is small
+        (ENCODER_SHAPES): device time per launch (torch.profiler; at the full
+        batch and the slice with the L2 flushed before each launch, since the
+        slice's 34 MB of pand_popcount input would otherwise stay in the 50 MB
+        L2) and per back-to-back call (CUDA events) beside the plain versions
+        and bounds.
+        It runs before the unfused and wide phases, after which profiler
+        sessions drop launches."""
         cfg = full_config()
         m, k, n_bits = cfg.modalities, cfg.classes, cfg.n_bits
         kd = rng.seed_words(OP_KEY)
@@ -1032,7 +1151,7 @@ class Smoke:
             ps = self._op_p if size == "full" else self._op_p[:, :px].contiguous()
             flat = ps.reshape(-1)
             words = sne_kernel.sne_encode_cuda(*kd, flat, n_bits=n_bits).view(m, px * k, -1)
-            reps = 5 if size == "full" else 50
+            reps = 10 if size == "full" else 50
             kernel = {
                 "sne_encode": lambda: sne_kernel.sne_encode_cuda(*kd, flat, n_bits=n_bits),
                 "pand_popcount": lambda: pp_kernel.pand_popcount_cuda(words),
@@ -1048,9 +1167,11 @@ class Smoke:
                 "fusion_map": lambda: fusion_map_ref(ps, prior),
             }
             for name in table:
-                bound, by, ops, nbytes = self._op_bound(name, m, px, k, n_bits)
-                row = {"pixels": px, "ms": _event_ms(kernel[name], reps), "bound_ms": bound,
-                       "bound_by": by, "ops": ops, "bytes": nbytes,
+                bound, by, ops, nbytes, hashed = self._op_bound(name, ps, n_bits)
+                ms = _device_ms(kernel[name], reps, kernel=f"{name}_kernel", cold=True)
+                row = {"pixels": px, "ms": ms,
+                       "call_ms": _event_ms(kernel[name], reps), "bound_ms": bound,
+                       "bound_by": by, "ops": ops, "bytes": nbytes, "hashed_share": hashed,
                        "plain_ms": _event_ms(plain[name], 3, warmup=1) if size == "line" else None}
                 if name == "fusion_map":
                     row["composed_ms"] = _event_ms(lambda: torch.softmax(
@@ -1059,10 +1180,15 @@ class Smoke:
                 plain_txt = "not measured (does not fit)" if row["plain_ms"] is None \
                     else f"{row['plain_ms']:.3f} ms"
                 extra = f", composed torch {row['composed_ms']:.4f} ms" if "composed_ms" in row else ""
+                if hashed is not None:
+                    extra += f"; {hashed * 100:.2f}% of streams need a hash"
                 self.say(f"{name} {size} ({px} pixels, M={m} K={k} n_bits={n_bits}): kernel "
-                         f"{row['ms']:.4f} ms/launch, plain {plain_txt}, bound {bound:.4f} ms "
-                         f"({by}){extra}")
+                         f"{row['ms']:.4f} ms/launch on the device, {row['call_ms']:.4f} ms per "
+                         f"back-to-back call, plain {plain_txt}, bound {bound:.4f} ms ({by}; "
+                         f"{row['ms'] / bound:.2f}x){extra}")
             del words
+        for name, size, shape in ENCODER_SHAPES:
+            table[name][size] = self._encoder_row(name, size, *shape)
         lat_p = torch.rand((2, LAT_DECISIONS, 2), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(6))
         lat = {"fused": _event_ms(lambda: bayes_decide(OP_KEY, lat_p, LAT_BITS), 50),
@@ -1074,6 +1200,38 @@ class Smoke:
                  f"{lat['composed'] / lat['fused']:.2f}x the composition")
         self.report["operator_timing"] = table
         self.report["latency_decision_ms"] = lat
+
+    def _encoder_row(self, name, size, m, r, k, n_bits):
+        """One encoder launch of shape (M, R, K) at n_bits, timed (sne_encode
+        encodes the M * R * K streams)."""
+        kd = rng.seed_words(NM_KEY)
+        p = torch.rand((m, r, k), generator=torch.Generator(device="cuda").manual_seed(47),
+                       device="cuda")
+        bound, by, ops, nbytes, hashed = self._op_bound(name, p, n_bits)
+        if name == "sne_encode":
+            flat = p.reshape(-1)
+
+            def launch():
+                return sne_kernel.sne_encode_cuda(*kd, flat, n_bits=n_bits)
+
+            def plain():
+                return sne_encode_ref(flat, _entropy(NM_KEY, (flat.numel(),), n_bits, 0))
+        else:
+            def launch():
+                return bd_kernel.bayes_decide_cuda(*kd, p, n_bits=n_bits)
+
+            def plain():
+                return bayes_decide_ref(p, _entropy(NM_KEY, (m, r, k), n_bits, 0))
+        row = {"shape": [m, r, k], "n_bits": n_bits,
+               "ms": _device_ms(launch, kernel=f"{name}_kernel"),
+               "call_ms": _event_ms(launch, 50), "bound_ms": bound, "bound_by": by,
+               "ops": ops, "bytes": nbytes, "hashed_share": hashed,
+               "plain_ms": _event_ms(plain, 3, warmup=1)}
+        self.say(f"{name} {size} (M={m} R={r} K={k}, n_bits={n_bits}): kernel {row['ms']:.4f} "
+                 f"ms/launch on the device, {row['call_ms']:.4f} ms per back-to-back call, "
+                 f"plain {row['plain_ms']:.3f} ms, bound {bound:.5f} ms ({by}; "
+                 f"{row['ms'] / bound:.2f}x; {hashed * 100:.2f}% of streams need a hash)")
+        return row
 
     # ---------------------------------------------------------- unfused lowering
     def _nm_note(self, name, got, want):
@@ -1295,7 +1453,7 @@ class Smoke:
         w = n_bits // 32
         words = rows * w * 8
         hashed = words if hashed is None else hashed
-        ops = hashed * (OPS_PER_ENTROPY_WORD - 4) + words * 4 * (k - 1)
+        ops = hashed * NM_HASH_OPS + words * 4 * (k - 1)
         nbytes = table_bytes + 4 * rows * w * (planes + bitops.value_bits(k))
         op_ms = ops / self.int32_ops_per_s * 1e3
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1357,28 +1515,6 @@ class Smoke:
                          f"{rows_bound[0]:.4f})")
                 del par, table, calls
         self.report["binary_timing"] = out
-
-    def sne_root_timing(self):
-        """sne_encode at the unfused path's root shape: B=1024 streams of 4096 bits."""
-        kd = rng.seed_words(NM_KEY)
-        p = torch.rand((BATCH,), generator=torch.Generator(device="cuda").manual_seed(47),
-                       device="cuda")
-        bound, by, ops, nbytes = self._op_bound("sne_encode", 1, BATCH, 1, N_BITS)
-
-        def launch():
-            return sne_kernel.sne_encode_cuda(*kd, p, n_bits=N_BITS)
-
-        def plain():
-            return sne_encode_ref(p, _entropy(NM_KEY, (BATCH,), N_BITS, 0))
-
-        row = {"rows": BATCH, "n_bits": N_BITS, "ms": _device_ms(launch),
-               "call_ms": _event_ms(launch, 50), "bound_ms": bound, "bound_by": by,
-               "ops": ops, "bytes": nbytes, "plain_ms": _event_ms(plain, 3, warmup=1)}
-        self.say(f"sne_encode at the unfused root shape (B={BATCH}, n_bits={N_BITS}): kernel "
-                 f"{row['ms']:.4f} ms/launch on the device, {row['call_ms']:.4f} ms per "
-                 f"back-to-back call, plain {row['plain_ms']:.3f} ms, bound {bound:.4f} ms "
-                 f"({by}; {row['ms'] / bound:.2f}x)")
-        return row
 
     def unfused_timing(self):
         kd = rng.seed_words(NM_KEY)
@@ -1487,8 +1623,7 @@ class Smoke:
                      + f"; unfused/fused {run_ms[n]['unfused'] / run_ms[n]['fused']:.1f}x; "
                      f"launches per unfused run {per_run[n]}")
         self.report["unfused_timing"] = {"kernels": table, "launches_per_run": per_run,
-                                         "run_ms": run_ms, "dispatch_ms": dispatch_ms,
-                                         "sne_encode_root": self.sne_root_timing()}
+                                         "run_ms": run_ms, "dispatch_ms": dispatch_ms}
 
 
 def main() -> int:
@@ -1556,18 +1691,21 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": s.op_launches[name],
-            "max_abs_err": s.op_err[name], "ms": line["ms"], "plain_ms": line["plain_ms"],
-            "bound_ms": line["bound_ms"], "bound_by": line["bound_by"],
+            "max_abs_err": s.op_err[name], "ms": line["ms"], "call_ms": line["call_ms"],
+            "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+            "bound_by": line["bound_by"],
             "library_ms": None,   # no single PyTorch call computes it
             "at": f"paper-bayes-fusion M=2 K=16 n_bits=128, first {LINE_PIXELS} pixels",
-            "full_ms": full["ms"], "full_bound_ms": full["bound_ms"],
+            "full_ms": full["ms"], "full_call_ms": full["call_ms"],
+            "full_bound_ms": full["bound_ms"],
         }
         if name == "fusion_map":
             entry["composed_ms"] = line["composed_ms"]
             entry["full_composed_ms"] = full["composed_ms"]
-        if name == "sne_encode":
-            root = s.report["unfused_timing"]["sne_encode_root"]
-            entry.update(unfused_root_ms=root["ms"], unfused_root_bound_ms=root["bound_ms"])
+        for kernel, size, _ in ENCODER_SHAPES:
+            if kernel == name:
+                entry[f"{size}_ms"] = sizes[size]["ms"]
+                entry[f"{size}_bound_ms"] = sizes[size]["bound_ms"]
         kernels["kernels"].append(entry)
     for name, sizes in s.report["unfused_timing"]["kernels"].items():
         wide = name in WIDE_KERNELS

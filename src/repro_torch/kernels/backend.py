@@ -7,7 +7,8 @@ tensor a kernel wrapper runs the kernel's plain torch version; on a CUDA
 tensor it launches the kernel or raises.
 
 **Builds.**  Each kernel is one ``.cu`` file with a plain C interface under
-its package's ``csrc/``, with the headers beside it.  :func:`load_library`
+its package's ``csrc/``, with the headers beside it (or, shared, beside
+another kernel's source: the wrapper names those as ``deps``).  :func:`load_library`
 compiles it with ``nvcc`` for ``sm_90a`` into ``build/`` at the repository
 root (listed in ``.gitignore``) on first use, and loads it with ``ctypes``.
 A library is rebuilt when its source or a header changes (the file name
@@ -17,6 +18,7 @@ carries a hash of them and the flags).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -44,6 +46,19 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r} (use 'cuda' or 'cpu')")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def fill_threads(index: int) -> int:
+    """Threads resident at once on CUDA device ``index``: every SM full."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count * props.max_threads_per_multi_processor
+
+
+def items_per_thread(items: int, fill: int, most: int) -> int:
+    """Items each thread of a launch takes, 1 up to ``most``: as many as still
+    leave ``fill`` threads (or one each where there are fewer items)."""
+    return max(1, min(most, items // fill))
 
 
 def pick_block(rows: int, preferred: int) -> int:
@@ -97,7 +112,8 @@ def build_library(source: pathlib.Path, extra_flags=(), deps=()) -> tuple:
     return out, log
 
 
-def load_library(source: pathlib.Path) -> ctypes.CDLL:
-    """Build (once per source version) and load a kernel library."""
-    path, _ = build_library(source)
+def load_library(source: pathlib.Path, deps=()) -> ctypes.CDLL:
+    """Build (once per version of the source and its headers) and load a
+    kernel library; ``deps`` as for :func:`build_library`."""
+    path, _ = build_library(source, deps=deps)
     return ctypes.CDLL(str(path))

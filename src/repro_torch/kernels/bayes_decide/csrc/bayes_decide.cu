@@ -16,78 +16,146 @@
 //
 // Design.  The Pallas kernel reads (M, R, K, n_rand) pre-drawn words from
 // HBM: 136 GB at the paper-bayes-fusion size as the port's int64 carrier, too
-// large for the card.  Here each thread owns one row, hashes its entropy in
-// registers, builds each modality's packed word exactly as sne_encode does,
-// ANDs them and popcounts, and keeps the running argmax, so neither entropy
-// nor streams are stored.  Offsets are 64-bit and truncated to 32 only as
-// counters.
+// large for the card.  Here the entropy is hashed in registers with
+// sne_encode's per-word body (../../sne_encode/csrc/sne_body.h), so neither
+// entropy nor streams are stored.  A stream with a modality at level 0 counts
+// 0 and one with every modality at 256 counts n_bits, with no hash; softmax
+// posteriors put most streams there (69 % of the full paper-bayes-fusion
+// batch).  So a block takes a tile of `rows_per_tile` rows in windows of
+// streams, each in two passes: first a thread per stream (`chunk` streams
+// each) stores those counts and queues the others in shared memory; then
+// `split` threads per queued stream (a power of two up to 32, adjacent lanes
+// of one warp, packed into the block's first warps) share its words, each
+// ANDing the hashed modalities of its words and popcounting them, and add
+// their counts with __shfl_xor_sync; lane 0 stores counts[r, k].  After the
+// tile's last window a thread per row reads the row's K counts back and
+// stores the argmax, so K is arbitrary.  The wrapper picks split, then chunk,
+// from (R, K, n_out): small batches still fill the card (bench_latency's 4096
+// decisions of M = K = 2 at 128 bits run 32,768 threads in 256 blocks, not
+// 4096 threads in 32), and the full batch takes one thread per stream and 8
+// streams per thread, so a tile's queued work spreads over all its warps.
 //
-// Bound on H100.  Integer work: 18 hash operations and 4 byte compares per
-// entropy word, M * K * n_bits / 4 entropy words per row, over the card's
-// INT32 rate.  The bytes (p in; counts and decisions out) take far less.
+// Bound on H100.  sne_encode's integer work per entropy word, n_bits / 4
+// entropy words per hashed modality of a queued stream, plus the AND over
+// those modalities and one popcount per stream word and the argmax's compare
+// per class.  The bytes (p in; counts and decisions out) take far less time,
+// so the kernel is bound by operations.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "../../sne_encode/csrc/sne_body.h"
+
 namespace {
 
-__device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
+constexpr int QUEUE = 1024;   // streams one pass classifies, at most: threads * chunk / split
 
-// round(p * 256) clipped to [0, 256]; p * 256 is exact in float32.
-__device__ __forceinline__ uint32_t dac_threshold(float p) {
-  return (uint32_t)fminf(fmaxf(rintf(p * 256.0f), 0.0f), 256.0f);
-}
-
-// One packed stream word (sne_encode's layout): entropy words ctr0 .. ctr0+7.
-__device__ __forceinline__ uint32_t encode_word(uint32_t ctr0, uint32_t t,
-                                                uint32_t kd0, uint32_t kd1) {
-  uint32_t word = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const uint32_t x = lowbias32(lowbias32((ctr0 + (uint32_t)j) ^ kd0) ^ kd1);
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      word |= (uint32_t)(((x >> (8 * b)) & 0xFFu) < t) << (4 * j + b);
-    }
+// The count of stream `row` over this thread's words, the split lanes' sum
+// left in every lane: a dead stream counts 0 and a full one n_bits, unhashed.
+__device__ int stream_count(const float* __restrict__ p, unsigned long long plane, int n_mod,
+                            unsigned long long row, bool valid, int n_out, int s, int split,
+                            int kind, SneKey key, uint32_t offset) {
+  int c = 0;
+  if (valid && kind == SNE_HASHED) {
+    c = sne_stream_count(p + row, plane, n_mod, row, plane, n_out, s, split, key, offset);
+  } else if (valid && kind == SNE_FULL && s == 0) {
+    c = 32 * n_out;
   }
-  return word;
+  for (int o = split >> 1; o > 0; o >>= 1) c += __shfl_xor_sync(0xFFFFFFFFu, c, o);
+  return c;
 }
 
-__global__ void bayes_decide_kernel(const float* __restrict__ p,
-                                    int* __restrict__ dec, int* __restrict__ counts,
-                                    int n_mod, long long n_rows, int n_cls,
-                                    int n_out, uint32_t kd0, uint32_t kd1,
-                                    uint32_t offset) {
-  const unsigned long long n_rand = 8ull * (unsigned long long)n_out;
+// chunk 1: the K * split threads of each row of the tile in turn, every stream
+// where it lies; every lane of a warp runs every pass, so the shuffles see
+// whole warps, and a stream's split lanes are adjacent and aligned in one warp
+__device__ void decide_streams(const float* __restrict__ p, int* counts, int n_mod,
+                               long long n_rows, int n_cls, int n_out, int log2_split,
+                               long long row0, int rows, SneKey key, uint32_t offset) {
   const unsigned long long plane = (unsigned long long)n_rows * n_cls;
-  for (long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x; r < n_rows;
-       r += (long long)gridDim.x * blockDim.x) {
-    int best = -1, arg = 0;
-    for (int k = 0; k < n_cls; ++k) {
-      const unsigned long long row0 = (unsigned long long)r * n_cls + k;
-      int cnt = 0;
-      for (int w = 0; w < n_out; ++w) {
-        uint32_t joint = 0xFFFFFFFFu;
-        for (int m = 0; m < n_mod; ++m) {
-          const unsigned long long row = m * plane + row0;
-          const uint32_t ctr0 = (uint32_t)(row * n_rand) + offset + 8u * (uint32_t)w;
-          joint &= encode_word(ctr0, dac_threshold(p[row]), kd0, kd1);
+  const int split = 1 << log2_split, group = n_cls * split, items = rows * group;
+  for (int base = 0; base < items; base += blockDim.x) {
+    const int i = base + (int)threadIdx.x;
+    const int j = i % group, s = j & (split - 1);
+    const bool valid = i < items;
+    const unsigned long long row =
+        (unsigned long long)(row0 + i / group) * n_cls + (j >> log2_split);
+    const int kind = valid ? sne_stream_kind(p + row, plane, n_mod) : SNE_DEAD;
+    const int c = stream_count(p, plane, n_mod, row, valid, n_out, s, split, kind, key, offset);
+    if (valid && s == 0) counts[row] = c;
+  }
+}
+
+// chunk > 1: windows of the tile's streams, each in two passes.  Pass 1, a
+// thread per stream (chunk each): a dead or full stream's count is stored, one
+// that needs a hash is queued.  Pass 2: split lanes per queued stream, packed
+// into the block's first warps; a warp past the last stream skips the pass.
+__device__ void decide_queued(const float* __restrict__ p, int* counts, int n_mod,
+                              long long n_rows, int n_cls, int n_out, int log2_split, int chunk,
+                              long long row0, int rows, SneKey key, uint32_t offset) {
+  __shared__ int queue[QUEUE];
+  __shared__ int n_queued;
+  const unsigned long long plane = (unsigned long long)n_rows * n_cls;
+  const int split = 1 << log2_split, threads = (int)blockDim.x;
+  const int window = (threads >> log2_split) * chunk;
+  const int i = (int)threadIdx.x, lane = i & 31, s = i & (split - 1);
+  const int streams = rows * n_cls;
+  const unsigned long long s0 = (unsigned long long)row0 * n_cls;   // the tile's first stream
+  for (int first = 0; first < streams; first += window) {
+    if (i == 0) n_queued = 0;
+    __syncthreads();
+    for (int x0 = 0; x0 < window; x0 += threads) {
+      const int j = first + x0 + i;
+      bool hashed = false;
+      if (x0 + i < window && j < streams) {
+        const int kind = sne_stream_kind(p + s0 + j, plane, n_mod);
+        if (kind == SNE_HASHED) {
+          hashed = true;
+        } else {
+          counts[s0 + j] = kind == SNE_FULL ? 32 * n_out : 0;
         }
-        cnt += __popc(joint);
       }
-      counts[row0] = cnt;
-      if (cnt > best) {  // strict: the first maximum wins
-        best = cnt;
-        arg = k;
+      const unsigned int ballot = __ballot_sync(0xFFFFFFFFu, hashed);
+      int slot = 0;
+      if (lane == 0 && ballot) slot = atomicAdd(&n_queued, __popc(ballot));
+      slot = __shfl_sync(0xFFFFFFFFu, slot, 0);
+      if (hashed) queue[slot + __popc(ballot & ((1u << lane) - 1u))] = j;
+    }
+    __syncthreads();
+    const int units = n_queued * split;
+    for (int u0 = 0; u0 < units; u0 += threads) {
+      if (u0 + (i & ~31) < units) {
+        const int u = u0 + i;
+        const bool valid = u < units;
+        const unsigned long long row = s0 + (valid ? queue[u >> log2_split] : 0);
+        const int c = stream_count(p, plane, n_mod, row, valid, n_out, s, split, SNE_HASHED,
+                                   key, offset);
+        if (valid && s == 0) counts[row] = c;
       }
     }
-    dec[r] = arg;
+    __syncthreads();   // the queue is read before the next window refills it
+  }
+}
+
+// A block takes tiles of `rows_per_tile` rows; after a tile's streams are
+// counted, a thread per row reads the row's K counts back and stores the argmax.
+__global__ void bayes_decide_kernel(const float* __restrict__ p, int* __restrict__ dec,
+                                    int* counts, int n_mod, long long n_rows, int n_cls,
+                                    int n_out, int log2_split, int chunk, int rows_per_tile,
+                                    SneKey key, uint32_t offset) {
+  const long long n_tiles = (n_rows + rows_per_tile - 1) / rows_per_tile;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long row0 = tile * rows_per_tile;
+    const int rows = (int)min((long long)rows_per_tile, n_rows - row0);
+    if (chunk == 1) {
+      decide_streams(p, counts, n_mod, n_rows, n_cls, n_out, log2_split, row0, rows, key,
+                     offset);
+    } else {
+      decide_queued(p, counts, n_mod, n_rows, n_cls, n_out, log2_split, chunk, row0, rows, key,
+                    offset);
+    }
+    __syncthreads();   // the tile's counts are stored and visible to the block
+    for (int x = (int)threadIdx.x; x < rows; x += blockDim.x) {
+      dec[row0 + x] = sne_argmax(counts + (unsigned long long)(row0 + x) * n_cls, n_cls);
+    }
   }
 }
 
@@ -96,12 +164,16 @@ __global__ void bayes_decide_kernel(const float* __restrict__ p,
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int bayes_decide_launch(const void* p, void* dec, void* counts, int n_mod,
                                    long long n_rows, int n_cls, int n_out,
-                                   unsigned int kd0, unsigned int kd1,
-                                   unsigned int offset, int threads, void* stream) {
-  long long blocks = (n_rows + threads - 1) / threads;
-  if (blocks > (1ll << 24)) blocks = 1ll << 24;  // the loop strides over the rest
+                                   unsigned int kd0, unsigned int kd1, unsigned int offset,
+                                   int log2_split, int chunk, int rows_per_tile, int threads,
+                                   int max_blocks, void* stream) {
+  if (threads % 32 || chunk < 1 || (threads >> log2_split) * chunk > QUEUE) {
+    return (int)cudaErrorInvalidValue;
+  }
+  long long blocks = (n_rows + rows_per_tile - 1) / rows_per_tile;
+  if (blocks > max_blocks) blocks = max_blocks;   // the tile loop strides over the rest
   bayes_decide_kernel<<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)p, (int*)dec, (int*)counts, n_mod, n_rows, n_cls, n_out, kd0,
-      kd1, offset);
+      (const float*)p, (int*)dec, (int*)counts, n_mod, n_rows, n_cls, n_out, log2_split, chunk,
+      rows_per_tile, sne_key(kd0, kd1), offset);
   return (int)cudaGetLastError();
 }

@@ -17,19 +17,42 @@ import torch
 
 from repro_torch.core.bitops import MASK32
 from repro_torch.kernels import backend
+from repro_torch.kernels.sne_encode import kernel as sne_kernel
 
 SOURCE = pathlib.Path(__file__).parent / "csrc" / "bayes_decide.cu"
-THREADS = 128     # rows per block: small batches still spread over the SMs
+DEPS = (sne_kernel.BODY,)     # the per-word body it includes from sne_encode
+THREADS = 128                 # threads per block: one tile of rows
+MAX_BLOCKS = 1 << 16          # the tile loop strides over the rest
+MAX_SPLIT = 32                # threads of one stream: adjacent lanes of one warp
+MAX_CHUNK = 8                 # streams a thread classifies per pass (THREADS * 8 = the queue)
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built kernel library, with its C signature declared."""
-    lib = backend.load_library(SOURCE)
+    lib = backend.load_library(SOURCE, deps=DEPS)
     p, i, ll, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
-    lib.bayes_decide_launch.argtypes = [p, p, p, i, ll, i, i, u, u, u, i, p]
+    lib.bayes_decide_launch.argtypes = [p, p, p, i, ll, i, i, u, u, u, i, i, i, i, i, p]
     lib.bayes_decide_launch.restype = i
     return lib
+
+
+def launch_split(rows: int, n_cls: int, n_out: int, fill_threads: int) -> tuple:
+    """(threads per stream, streams each thread classifies, rows per tile) of
+    one launch.
+
+    A stream's words are shared by the fewest threads, a power of two up to
+    ``MAX_SPLIT`` and at most ``n_out``, that give ``fill_threads`` threads in
+    all; where that leaves threads to spare, each classifies up to
+    ``MAX_CHUNK`` streams before the block hashes the ones that need it.  A
+    tile holds as many whole rows (K streams each) as one pass classifies,
+    and at least one.
+    """
+    split = 1
+    while 2 * split <= min(MAX_SPLIT, n_out) and rows * n_cls * split < fill_threads:
+        split *= 2
+    chunk = backend.items_per_thread(rows * n_cls * split, fill_threads, MAX_CHUNK)
+    return split, chunk, max(1, THREADS // split * chunk // n_cls)
 
 
 def bayes_decide_cuda(kd0: int, kd1: int, p: torch.Tensor, *, n_bits: int,
@@ -49,16 +72,22 @@ def bayes_decide_cuda(kd0: int, kd1: int, p: torch.Tensor, *, n_bits: int,
         raise ValueError(f"n_bits must be a positive multiple of 32, got {n_bits}")
     p = p.contiguous()
     m, r, k = p.shape
-    dec = torch.zeros((r,), dtype=torch.int32, device=p.device)
-    counts = torch.zeros((r, k), dtype=torch.int32, device=p.device)
     if r == 0 or k == 0:
-        return dec, counts
+        return (torch.zeros((r,), dtype=torch.int32, device=p.device),
+                torch.zeros((r, k), dtype=torch.int32, device=p.device))
+    # the kernel stores every count and every decision
+    dec = torch.empty((r,), dtype=torch.int32, device=p.device)
+    counts = torch.empty((r, k), dtype=torch.int32, device=p.device)
+    n_out = n_bits // 32
+    split, chunk, rows_per_tile = launch_split(r, k, n_out,
+                                               backend.fill_threads(p.device.index or 0))
     lib = library()
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         err = lib.bayes_decide_launch(
-            p.data_ptr(), dec.data_ptr(), counts.data_ptr(), m, r, k, n_bits // 32,
-            kd0 & MASK32, kd1 & MASK32, int(offset) & MASK32, THREADS, stream)
+            p.data_ptr(), dec.data_ptr(), counts.data_ptr(), m, r, k, n_out,
+            kd0 & MASK32, kd1 & MASK32, int(offset) & MASK32, split.bit_length() - 1,
+            chunk, rows_per_tile, THREADS, MAX_BLOCKS, stream)
     if err != 0:
         raise RuntimeError(f"bayes_decide kernel launch failed: cudaError {err}")
     bayes_decide_cuda.launches += 1

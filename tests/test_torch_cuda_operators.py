@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from repro_torch.core import rng
-from repro_torch.kernels import bayes_decide, bayes_decide_packed, fusion_map
+from repro_torch.kernels import backend, bayes_decide, bayes_decide_packed, fusion_map
 from repro_torch.kernels import pand_popcount, sne_encode
 from repro_torch.kernels.bayes_decide import kernel as BK
 from repro_torch.kernels.bayes_decide.ref import bayes_decide_ref
@@ -47,22 +47,26 @@ def _probs(seed, shape):
     flat = p.reshape(-1)
     flat[: min(flat.size, 7)] = np.array([0.0, 1.0, 1.5, -0.2, 1 / 512, 3 / 512, 511 / 512],
                                          np.float32)[: min(flat.size, 7)]
-    if p.ndim == 3:
+    if p.ndim == 3 and p.shape[1] > 1:
         p[:, 1] = 0.0           # a row where every class ties at count 0
     return p
 
 
-# (M, rows not a multiple of the block, K, n_bits, counter origin)
+# (M, rows not a multiple of the block, K, n_bits, counter origin); then one
+# row and the unfused root's 1024 rows of 4096 bits (sne_encode's shapes),
+# bench_latency's decision (4096 x M = K = 2 x 128 bits), a bayes_head batch
+# (64 tokens, top 8 classes, 256 bits), and K = 33 at M = 3
 _CASES = [(1, 300, 2, 64, 0), (2, 4099, 16, 128, 0), (3, 257, 5, 96, WRAP),
-          (2, 1000, 2, 256, WRAP), (3, 33, 1, 32, 2**32 + 5)]
+          (2, 1000, 2, 256, WRAP), (3, 33, 1, 32, 2**32 + 5),
+          (1, 1, 1, 4096, WRAP), (1, 1024, 1, 4096, 0), (2, 4096, 2, 128, 0),
+          (2, 64, 8, 256, 0), (3, 100, 33, 128, WRAP)]
 _IDS = [f"M{c[0]}-R{c[1]}-K{c[2]}-{c[3]}b-off{c[4]}" for c in _CASES]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", _CASES, ids=_IDS)
-def test_integer_kernels_equal_plain_versions(case, cuda_device):
+def _check_integer_kernels(case, cuda_device, p=None):
     m, r, k, n_bits, offset = case
-    p = torch.from_numpy(_probs(r + k, (m, r, k)))
+    tied = p is None and r > 1          # _probs sets row 1 to 0: every class ties
+    p = torch.from_numpy(_probs(r + k, (m, r, k)) if p is None else p)
     kd0, kd1 = (int(v) for v in KD)
     pc = p.to(cuda_device)
     words = SK.sne_encode_cuda(kd0, kd1, pc.reshape(-1), n_bits=n_bits, offset=offset)
@@ -76,7 +80,48 @@ def test_integer_kernels_equal_plain_versions(case, cuda_device):
                       (dec, want_dec)):
         assert got.device.type == "cuda" and got.dtype == want.dtype
         assert torch.equal(got.cpu(), want)
-    assert int(dec[1]) == 0
+    if tied:
+        assert int(dec[1]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _CASES, ids=_IDS)
+def test_integer_kernels_equal_plain_versions(case, cuda_device):
+    _check_integer_kernels(case, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [None, 64], ids=["card", "chunked"])
+@pytest.mark.parametrize("case", [(1, 300, 1, 96, WRAP), (3, 257, 5, 96, 0)],
+                         ids=["M1-R300-K1-96b", "M3-R257-K5-96b"])
+def test_integer_kernels_stride_past_their_grid(case, fill, cuda_device, monkeypatch):
+    # one block: sne_encode's grid-stride loop carries (r, w) into the next
+    # row (n_out = 3 divides neither the stride of 256 words nor 256 * chunk),
+    # and bayes_decide's tile loop walks every tile of rows; on a card of
+    # `fill` threads each thread classifies several items or streams, and a
+    # tile holds more rows than a block has threads
+    monkeypatch.setattr(SK, "MAX_BLOCKS", 1)
+    monkeypatch.setattr(BK, "MAX_BLOCKS", 1)
+    if fill is not None:
+        monkeypatch.setattr(backend, "fill_threads", lambda index: fill)
+    _check_integer_kernels(case, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [None, 256], ids=["card", "chunk8"])
+@pytest.mark.parametrize("n_bits", [128, 4096])
+def test_integer_kernels_on_peaked_posteriors(n_bits, fill, cuda_device, monkeypatch):
+    # softmax of N(0, 3^2) logits over 16 classes: about 44 % of the streams
+    # sit at level 0 or 256 and are stored without a hash, mixed in every warp;
+    # with a card of `fill` threads each thread classifies 8 items, as at the
+    # full paper-bayes-fusion batch
+    if fill is not None:
+        monkeypatch.setattr(backend, "fill_threads", lambda index: fill)
+    m, r, k = 2, 3001, 16
+    logits = 3.0 * np.random.default_rng(n_bits).standard_normal((m, r, k))
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    p = (p / p.sum(-1, keepdims=True)).astype(np.float32)
+    _check_integer_kernels((m, r, k, n_bits, WRAP), cuda_device, p)
 
 
 @pytest.mark.cuda
