@@ -44,7 +44,29 @@ Phases (any failure makes the script exit non-zero without the result line):
 7. drain_trace -- ``torch.profiler`` over one async drain (intersection, 4096
               frames, max_batch=256): the device's busy share of the window
               and kernel time by name.
-8. operators -- the paper's fusion operators.  Each of ``sne_encode``,
+8. router  -- the multi-tenant ``BayesRouter`` at its own defaults (n_bits=4096,
+              max_batch=256, ``RouterPolicy()``: rungs of 4096/1024/256 bits)
+              over the 7 scenario tenants, submitted round-robin in chunks of
+              4: a 7 x 256-frame serve on the card equal rid for rid (status,
+              posterior, accepted, level) to a ``device="cpu"`` router and per
+              tenant to a standalone card ``FrameDriver`` with
+              ``salt=tenant_salt(name)``, launch counts reset just before and
+              read just after (``net_sweep`` only, no program built); seeded
+              5% launch-fault chaos (bench_serve's ``CHAOS``, max_batch=8),
+              card equal to CPU; an overload serve of 7 x 1024 frames (the
+              timed overload round's shape, every frame DEGRADED at rung 1,
+              1024 bits) card equal to CPU, launch counts reset and read
+              around it; the timed serve -- a warm-up round, then 3
+              rounds each of nominal (7 x 512 frames), overload (7 x 1024,
+              which walks the ladder to rung 1) and chaos (7 x 512) at the
+              default 1 s deadline, failing on a lost frame or a ``net_sweep``
+              build, reporting frames/s (the best round's, and all frames
+              over all rounds' wall time), the status census, the deadline hit
+              rate and the device's busy share of one traced nominal round;
+              a forced recalibration of a noisy tenant (card equal to CPU, one
+              swap, the swap's wall time and its twin's nvcc seconds); and
+              ``calibration_report`` on the card equal to the CPU.
+9. operators -- the paper's fusion operators.  Each of ``sne_encode``,
               ``pand_popcount``, ``bayes_decide`` and ``fusion_map`` against
               its plain torch version on the card (bit for bit; fusion_map
               within atol 2e-6, rtol 1e-5) at M 1..3, K 1, 2, 8, 16 and 33,
@@ -61,7 +83,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               decision (4096 decisions, M=K=2, 128 bits: fused, composed,
               ``bayes_decide_packed``); and the ``obstacle_fusion`` example
               flow at 64x64.
-9. operator_timing -- device time per launch (``torch.profiler``, the L2
+10. operator_timing -- device time per launch (``torch.profiler``, the L2
               flushed before each launch) and per back-to-back call (CUDA
               events) of the four kernels at the full batch and at a
               65,536-pixel slice of it, beside their plain
@@ -74,7 +96,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               bound counts the shared body's least integer work per entropy
               word, logic on the 64 ALU lanes of an SM and multiplies and
               adds free to use all 128, as ``net_sweep``'s.
-10. unfused_kernels -- the ``node_mux`` kernels against their plain versions
+11. unfused_kernels -- the ``node_mux`` kernels against their plain versions
               on the card, bit for bit: gather and rows at 0 to 6 parents
               (per-row tables and shared rows holding thresholds 0, 128, 256
               and the half steps) and at 7 and 8 (the gather on the
@@ -83,7 +105,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               (per-row and shared tables; 6 binary parents at k = 2) and
               its wide path at 9 planes and at 17 parents, k-ary roots, and
               counter origins that wrap 2**32.
-11. unfused_path -- the unfused lowering through its entry points at
+12. unfused_path -- the unfused lowering through its entry points at
               n_bits=4096, B=1024, counts reset just before and read just
               after: 7 scenarios x {``fused=False``, ``share_entropy=True``},
               ``mux_mode='rows'`` on the 4 binary scenarios and
@@ -94,12 +116,12 @@ Phases (any failure makes the script exit non-zero without the result line):
               Then the unfused, shared-entropy and fused posteriors against the
               enumeration oracle: per distinct evidence vector, the posterior
               pooled over its frames within 4.5 sqrt(p (1-p) / accepted).
-12. wide_path -- the wide network through ``compile_network`` fused,
+13. wide_path -- the wide network through ``compile_network`` fused,
               ``fused=False``, ``share_entropy=True`` and ``mux_mode='rows'`` at
               n_bits=4096, B=1024, each ``decide`` bit-equal to
               ``device="cpu"``; counts reset just before and read just after,
               and each wide kernel must have launched.
-13. unfused_timing -- device time per launch and per back-to-back call of the
+14. unfused_timing -- device time per launch and per back-to-back call of the
               node_mux kernels at B=1024 and B=65,536 (n_bits=4096; the wide
               paths at B=256) beside their plain versions and bounds; launches
               of each kernel per unfused ``run`` of each scenario; wall time per
@@ -146,6 +168,7 @@ from repro_torch.bayesnet import (  # noqa: E402
     posterior_argmax,
     sweep_plan,
 )
+from repro_torch.bayesnet.reliability import TERMINAL_STATUSES  # noqa: E402
 from repro_torch.configs.paper_bayes import full_config  # noqa: E402
 from repro_torch.core import bitops, prng, rng  # noqa: E402
 from repro_torch.data import detection  # noqa: E402
@@ -175,7 +198,9 @@ from repro_torch.kernels.pand_popcount import kernel as pp_kernel  # noqa: E402
 from repro_torch.kernels.pand_popcount.ref import pand_popcount_ref  # noqa: E402
 from repro_torch.kernels.sne_encode import kernel as sne_kernel  # noqa: E402
 from repro_torch.kernels.sne_encode.ref import sne_encode_ref  # noqa: E402
+from repro_torch.distributed.fault import LaunchFaultInjector  # noqa: E402
 from repro_torch.obs import PAPER_BUDGET_MS  # noqa: E402
+from repro_torch.serve import BayesRouter, RouterPolicy, tenant_salt  # noqa: E402
 from torch_wide_net import wide_spec  # noqa: E402
 
 NAMES = sorted(SCENARIOS)
@@ -267,6 +292,21 @@ BINARY_NODES = {1: ("intersection", "horn"), 2: ("intersection", "radar_cross"),
 EDGE_P = (0.0, 1.0, 0.5, 1 / 512, 3 / 512, 255 / 512, 257 / 512, 511 / 512, 1.5, -0.25)
 WIDE_BATCH = 256                      # rows of the wide kernels' timing (their plain versions fit)
 NOISY = ("intersection", "intersection-cat")   # the drift-epoch checks: nominal noise, 3 epochs
+# the router phase, at the router's own defaults (n_bits=4096, max_batch=256,
+# RouterPolicy(): capacity 4096, degrade step 4 -- rungs of 4096/1024/256 bits)
+ROUTER_KEY = prng.PRNGKey(42)
+ROUTER_CHUNK = 4                      # round-robin submission granularity (bench_serve's)
+ROUTER_PARITY_FRAMES = 256            # per tenant, card against CPU
+ROUTER_OVERLOAD_FRAMES = 1024         # per tenant: 7,168 queued frames, rung 1 for all
+ROUTER_CHAOS_FRAMES, ROUTER_CHAOS_BATCH = 64, 8
+ROUTER_LONG_MS = 600_000.0            # a deadline no run comes near: statuses not timed
+ROUTER_ROUNDS = 3
+# timed rounds: mode -> frames per tenant (7 x 512 = 3,584 frames stay under the
+# 4,096 capacity; 7 x 1024 = 7,168 walk the ladder to rung 1)
+ROUTER_MODES = {"nominal": 512, "overload": 1024, "chaos": 512}
+CHAOS = dict(seed=7, p_drop=0.02, p_stall=0.01, p_corrupt=0.02, stall_ms=2.0)  # bench_serve's
+FAST = dict(backoff_base_s=1e-4, backoff_cap_s=2e-3, breaker_cooldown_s=0.01)
+RECAL_TENANT, RECAL_FRAMES = "pedestrian-night", 256
 
 
 def _spec(name):
@@ -609,6 +649,66 @@ def _obstacle_flow(device):
     }
 
 
+def _router(policy, max_batch, device, **kw):
+    return BayesRouter(policy, ROUTER_KEY, n_bits=N_BITS, max_batch=max_batch,
+                       max_cached_tenants=len(NAMES), device=device, **kw)
+
+
+def _router_workload(n_frames, seed):
+    """Per-tenant evidence, drawn by ancestral sampling from seeded generators."""
+    return {n: analytic.sample_evidence(by_name(n), torch.Generator().manual_seed(seed + i),
+                                        n_frames).numpy() for i, n in enumerate(NAMES)}
+
+
+def _router_round(router, workload, deadline_ms=None):
+    """Submit the workload round-robin in chunks, drain; every rid exactly once."""
+    rids = []
+    n = len(next(iter(workload.values())))
+    t0 = time.perf_counter()
+    for lo in range(0, n, ROUTER_CHUNK):
+        for name, ev in workload.items():
+            rids += router.submit(name, ev[lo:lo + ROUTER_CHUNK], deadline_ms=deadline_ms)
+    out = router.drain()
+    wall = time.perf_counter() - t0
+    if sorted(out) != sorted(rids) or len(set(rids)) != len(rids):
+        lost = len(set(rids) - set(out))
+        raise AssertionError(f"the router's round lost {lost} frames or emitted others")
+    for rid in rids:
+        if router.results[rid].status not in TERMINAL_STATUSES:
+            raise AssertionError(f"rid {rid}: status {router.results[rid].status}")
+    return rids, out, wall
+
+
+def _census(router, rids):
+    out = {s: 0 for s in TERMINAL_STATUSES}
+    for rid in rids:
+        out[router.results[rid].status] += 1
+    return out
+
+
+def _router_same(card, cpu, rids, what):
+    for rid in rids:
+        a, b = card.results[rid], cpu.results[rid]
+        if (a.tenant, a.status, a.accepted, a.degrade_level) != \
+                (b.tenant, b.status, b.accepted, b.degrade_level) or \
+                (a.post is None) != (b.post is None) or \
+                (a.post is not None and not np.array_equal(a.post, b.post)):
+            raise AssertionError(f"router {what}: rid {rid} differs between the card "
+                                 f"({a.status}) and the CPU ({b.status})")
+
+
+def _busy_us(prof):
+    """(the union of a profile's device intervals in us, their number)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy, len(spans)
+
+
 class Smoke:
     def __init__(self):
         self.failures = []
@@ -904,13 +1004,7 @@ class Smoke:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         assert len(out) == DRAIN_FRAMES
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        busy, end = 0.0, float("-inf")
-        for a, b in spans:                 # the union of the device's intervals
-            if b > end:
-                busy += b - max(a, end)
-                end = b
+        busy, n_spans = _busy_us(prof)
         by_name_us = {}
         for e in prof.key_averages():
             dev_us = getattr(e, "self_device_time_total", None)
@@ -922,19 +1016,282 @@ class Smoke:
         trace_path = ROOT / "chiprun_out" / "drain_trace.json"
         trace_path.parent.mkdir(exist_ok=True)
         prof.export_chrome_trace(str(trace_path))
-        if not spans:
+        if not n_spans:
             raise AssertionError("torch.profiler recorded no device activity in the drain")
         self.say(f"drain trace ({TIMED_SCENARIO}, {DRAIN_FRAMES} frames, max_batch={MAX_BATCH}, "
                  f"torch.profiler): wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
-                 f"({busy / wall_us * 100:.1f}% of the window, the union of {len(spans)} device "
+                 f"({busy / wall_us * 100:.1f}% of the window, the union of {n_spans} device "
                  f"intervals); device time by name: "
                  + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
         self.report["drain_trace"] = {
             "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "busy_share": busy / wall_us, "device_intervals": len(spans),
+            "busy_share": busy / wall_us, "device_intervals": n_spans,
             "device_ms_by_name": {k: v / 1e3 for k, v in by_name_us.items()},
             "trace": str(trace_path.relative_to(ROOT)),
         }
+
+    # --------------------------------------------------------------- router
+    def router(self):
+        """The multi-tenant BayesRouter at its own defaults, card against CPU."""
+        self.report["router"] = {}
+        self._router_parity()
+        self._router_chaos()
+        self._router_overload()
+        self._router_timed()
+        self._router_recalibration()
+        self._router_fit()
+
+    def _router_parity(self):
+        wl = _router_workload(ROUTER_PARITY_FRAMES, seed=31)
+        cpu = _router(RouterPolicy(), MAX_BATCH, "cpu")
+        cpu_rids, _, _ = _router_round(cpu, wl, ROUTER_LONG_MS)
+        card = _router(RouterPolicy(), MAX_BATCH, "cuda")
+        builds = net_sweep_kernel.net_sweep_cuda.builds
+        torch.cuda.synchronize()
+        _reset_launches()                                      # the router's path starts
+        rids, _, wall = _router_round(card, wl, ROUTER_LONG_MS)
+        torch.cuda.synchronize()
+        counts = _launches()                                   # the router's path ends
+        self.router_launches = counts["net_sweep"]
+        if self.router_launches <= 0:
+            raise AssertionError("the router's serve launched the net_sweep kernel 0 times")
+        others = {k: v for k, v in counts.items() if k != "net_sweep" and v}
+        if others:
+            raise AssertionError(f"the router's path launched other kernels: {others}")
+        if net_sweep_kernel.net_sweep_cuda.builds != builds:
+            raise AssertionError("a net_sweep program was built during the router's serve")
+        if rids != cpu_rids:
+            raise AssertionError("the card router and the CPU router numbered rids apart")
+        _router_same(card, cpu, rids, "parity")
+        census = _census(card, rids)
+        if census["OK"] != len(rids) or any(card.results[r].degrade_level for r in rids):
+            raise AssertionError(f"the parity serve did not serve every frame at full "
+                                 f"fidelity: {census}")
+        for name in NAMES:                       # a tenant equals its standalone driver
+            d = FrameDriver(compile_network(by_name(name), n_bits=N_BITS, device="cuda"),
+                            max_batch=MAX_BATCH, base_key=ROUTER_KEY, salt=tenant_salt(name))
+            d.submit(wl[name])
+            ref = d.drain()
+            mine = [r for r in rids if card.results[r].tenant == name]
+            for i, rid in enumerate(mine):
+                res = card.results[rid]
+                if not np.array_equal(res.post, ref[i][0]) or res.accepted != ref[i][1]:
+                    raise AssertionError(f"{name}: router rid {rid} differs from a standalone "
+                                         f"driver with salt tenant_salt({name!r})")
+        self.say(f"router parity: {len(NAMES)} tenants x {ROUTER_PARITY_FRAMES} frames, "
+                 f"n_bits={N_BITS}, max_batch={MAX_BATCH}, chunks of {ROUTER_CHUNK}: card equal "
+                 f"to the CPU rid for rid (status, posterior, accepted, level) and each tenant "
+                 f"to a standalone card FrameDriver; net_sweep launches {self.router_launches}; "
+                 f"serve {wall * 1e3:.1f} ms")
+        self.report["router"]["parity"] = {"frames": len(rids), "launches": counts,
+                                           "census": census, "wall_ms": wall * 1e3}
+
+    def _router_chaos(self):
+        wl = _router_workload(ROUTER_CHAOS_FRAMES, seed=41)
+        runs = {}
+        for device in ("cuda", "cpu"):
+            r = _router(RouterPolicy(**FAST), ROUTER_CHAOS_BATCH, device,
+                        fault=LaunchFaultInjector(**CHAOS))
+            rids, out, wall = _router_round(r, wl, ROUTER_LONG_MS)
+            runs[device] = (r, rids, wall)
+        (card, rids, wall), (cpu, cpu_rids, _) = runs["cuda"], runs["cpu"]
+        if rids != cpu_rids:
+            raise AssertionError("the chaos routers numbered rids apart")
+        _router_same(card, cpu, rids, "chaos")
+        if card.fault.injected != cpu.fault.injected:
+            raise AssertionError(f"chaos drew {card.fault.injected} on the card and "
+                                 f"{cpu.fault.injected} on the CPU")
+        census = _census(card, rids)
+        trips = {n: card.tenant(n).trips for n in NAMES}
+        self.say(f"router chaos ({CHAOS}, max_batch={ROUTER_CHAOS_BATCH}, "
+                 f"{len(NAMES)} x {ROUTER_CHAOS_FRAMES} frames): card equal to the CPU rid for "
+                 f"rid; injected {dict(card.fault.injected)}; census {census}; lost 0; "
+                 f"breaker trips {sum(trips.values())}; serve {wall * 1e3:.1f} ms")
+        self.report["router"]["chaos_parity"] = {
+            "injected": dict(card.fault.injected), "census": census, "trips": trips,
+            "wall_ms": wall * 1e3}
+
+    def _router_overload(self):
+        """The timed overload round's shape, held card against CPU: rung 1 for every frame."""
+        wl = _router_workload(ROUTER_OVERLOAD_FRAMES, seed=51)
+        cpu = _router(RouterPolicy(), MAX_BATCH, "cpu")
+        cpu_rids, _, _ = _router_round(cpu, wl, ROUTER_LONG_MS)
+        card = _router(RouterPolicy(), MAX_BATCH, "cuda")
+        builds = net_sweep_kernel.net_sweep_cuda.builds
+        torch.cuda.synchronize()
+        _reset_launches()                                      # the overload serve starts
+        rids, _, wall = _router_round(card, wl, ROUTER_LONG_MS)
+        torch.cuda.synchronize()
+        counts = _launches()                                   # the overload serve ends
+        if counts["net_sweep"] <= 0:
+            raise AssertionError("the overload serve launched the net_sweep kernel 0 times")
+        others = {k: v for k, v in counts.items() if k != "net_sweep" and v}
+        if others:
+            raise AssertionError(f"the overload serve launched other kernels: {others}")
+        if net_sweep_kernel.net_sweep_cuda.builds != builds:
+            raise AssertionError("a net_sweep program was built during the overload serve")
+        if rids != cpu_rids:
+            raise AssertionError("the overload routers numbered rids apart")
+        _router_same(card, cpu, rids, "overload")
+        census = _census(card, rids)
+        if census["DEGRADED"] != len(rids) or any(card.results[r].degrade_level != 1
+                                                  for r in rids):
+            raise AssertionError(f"the overload serve did not serve every frame DEGRADED at "
+                                 f"rung 1: {census}")
+        rung_bits = card.tenant(NAMES[0]).drivers[1].net.n_bits
+        self.say(f"router overload parity: {len(NAMES)} tenants x {ROUTER_OVERLOAD_FRAMES} "
+                 f"frames, max_batch={MAX_BATCH}: every frame DEGRADED at rung 1 ({rung_bits} "
+                 f"bits), card equal to the CPU rid for rid; net_sweep launches "
+                 f"{counts['net_sweep']}; serve {wall * 1e3:.1f} ms")
+        self.report["router"]["overload_parity"] = {
+            "frames": len(rids), "rung_n_bits": rung_bits, "launches": counts,
+            "census": census, "wall_ms": wall * 1e3}
+
+    def _router_timed(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        rows = {}
+        for mode, n in ROUTER_MODES.items():
+            chaos = mode == "chaos"
+            r = _router(RouterPolicy(**FAST) if chaos else RouterPolicy(),
+                        ROUTER_CHAOS_BATCH if chaos else MAX_BATCH, "cuda",
+                        fault=LaunchFaultInjector(**CHAOS) if chaos else None)
+            wl = _router_workload(n, seed=51)
+            _router_round(r, wl, ROUTER_LONG_MS)            # warm-up: plans, rungs
+            torch.cuda.synchronize()
+            builds = net_sweep_kernel.net_sweep_cuda.builds
+            launches = net_sweep_kernel.net_sweep_cuda.launches
+            walls, census, hits, frames = [], collections.Counter(), 0, 0
+            levels = collections.Counter()
+            for _ in range(ROUTER_ROUNDS):
+                rids, _, wall = _router_round(r, wl)           # the default 1 s deadline
+                walls.append(wall)
+                census.update(_census(r, rids))
+                levels.update(r.results[rid].degrade_level for rid in rids)
+                hits += sum(r.results[rid].deadline_met for rid in rids)
+                frames += len(rids)
+            torch.cuda.synchronize()
+            built = net_sweep_kernel.net_sweep_cuda.builds - builds
+            if built:
+                raise AssertionError(f"router {mode}: {built} net_sweep programs built "
+                                     f"during the timed rounds")
+            per_round = len(NAMES) * n
+            row = {"frames_per_round": per_round, "rounds": ROUTER_ROUNDS,
+                   "wall_ms": [w * 1e3 for w in walls],
+                   "frames_per_s_best_round": per_round / min(walls),
+                   "frames_per_s_all_rounds": frames / sum(walls), "census": dict(census),
+                   "levels": dict(levels), "lost": 0, "deadline_hit_rate": hits / frames,
+                   "launches": net_sweep_kernel.net_sweep_cuda.launches - launches,
+                   "builds": built}
+            if chaos:
+                row["injected"] = dict(r.fault.injected)
+            if mode == "nominal":
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    rids, _, _ = _router_round(r, wl)
+                    torch.cuda.synchronize()
+                    wall_us = (time.perf_counter() - t0) * 1e6
+                busy, n_spans = _busy_us(prof)
+                if not n_spans:
+                    raise AssertionError("torch.profiler recorded no device activity in "
+                                         "the router's round")
+                row.update(traced_wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+                           busy_share=busy / wall_us, device_intervals=n_spans)
+            rows[mode] = row
+            extra = (f"; one traced round: wall {row['traced_wall_ms']:.1f} ms, device busy "
+                     f"{row['device_busy_ms']:.3f} ms ({row['busy_share'] * 100:.2f}% of the "
+                     f"window)") if mode == "nominal" else ""
+            inj = f"; injected {row['injected']}" if chaos else ""
+            self.say(f"router {mode}: {len(NAMES)} x {n} frames per round, {ROUTER_ROUNDS} "
+                     f"rounds: {row['frames_per_s_best_round']:.0f} frames/s in the best "
+                     f"round, {row['frames_per_s_all_rounds']:.0f} frames/s over all rounds "
+                     f"(rounds "
+                     + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+                     + f" ms); census {dict(census)}; levels {dict(levels)}; lost 0; deadline "
+                     f"hit rate {row['deadline_hit_rate']:.4f}; net_sweep launches "
+                     f"{row['launches']}, builds 0{inj}{extra}")
+        self.report["router"]["timed"] = rows
+
+    def _router_recalibration(self):
+        spec = by_name(RECAL_TENANT)
+        ev = analytic.sample_evidence(spec, torch.Generator().manual_seed(61),
+                                      3 * RECAL_FRAMES).numpy()
+        runs = {}
+        for device in ("cuda", "cpu"):
+            r = _router(RouterPolicy(), MAX_BATCH, device, drift=tbn.DriftPolicy(warmup=2))
+            r.register(RECAL_TENANT, noise=NoiseModel(seed=9, cycle=0, wear_tau=1.0))
+            t = r.tenant(RECAL_TENANT)
+            swap = {}
+            recalibrate = t.recalibrate
+
+            def timed(cycle=None, recalibrate=recalibrate, swap=swap):
+                before = set(net_sweep_kernel.BUILDS)
+                t0 = time.perf_counter()
+                c = recalibrate(cycle)
+                swap["wall_s"] = time.perf_counter() - t0
+                swap["nvcc_s"] = [net_sweep_kernel.BUILDS[k]["seconds"]
+                                  for k in set(net_sweep_kernel.BUILDS) - before]
+                return c
+
+            t.recalibrate = timed
+            before = set(net_sweep_kernel.BUILDS)
+            t0 = time.perf_counter()
+            rids = r.submit(RECAL_TENANT, ev[:RECAL_FRAMES], deadline_ms=ROUTER_LONG_MS)
+            r.drain()
+            first_s = time.perf_counter() - t0
+            first_nvcc = [net_sweep_kernel.BUILDS[k]["seconds"]
+                          for k in set(net_sweep_kernel.BUILDS) - before]
+            t.monitor.state = tbn.HEALTH_RECALIBRATING          # force the latch
+            for lo in (RECAL_FRAMES, 2 * RECAL_FRAMES):   # the swap round, then the twin serves
+                rids += r.submit(RECAL_TENANT, ev[lo:lo + RECAL_FRAMES],
+                                 deadline_ms=ROUTER_LONG_MS)
+                r.drain()
+            if sorted(r.results) != sorted(rids):
+                raise AssertionError(f"recalibration on {device} lost frames")
+            if t.recalibrations != 1 or r.health(RECAL_TENANT) != tbn.HEALTH_HEALTHY:
+                raise AssertionError(f"recalibration on {device}: {t.recalibrations} swaps, "
+                                     f"health {r.health(RECAL_TENANT)}")
+            if t.drivers[0].net.program is None:
+                raise AssertionError("the swapped-in plan is not a calibrate-back twin")
+            runs[device] = (r, rids, swap, first_s, first_nvcc)
+        (card, rids, swap, first_s, first_nvcc), (cpu, cpu_rids, *_) = runs["cuda"], runs["cpu"]
+        if rids != cpu_rids:
+            raise AssertionError("the recalibration routers numbered rids apart")
+        _router_same(card, cpu, rids, "recalibration")
+        census = _census(card, rids)
+        if census["OK"] != len(rids):
+            raise AssertionError(f"recalibration census {census}")
+        if len(swap["nvcc_s"]) != 1:
+            raise AssertionError(f"the recalibration built {len(swap['nvcc_s'])} net_sweep "
+                                 f"programs, not one")
+        self.say(f"router recalibration ({RECAL_TENANT}, NoiseModel(seed=9, wear_tau=1.0), "
+                 f"n_bits={N_BITS}, max_batch={MAX_BATCH}, 3 x {RECAL_FRAMES} frames): card "
+                 f"equal to the CPU rid for rid, 1 recalibration at cycle "
+                 f"{card.tenant(RECAL_TENANT).drivers[0].net.noise.cycle}, health HEALTHY, "
+                 f"lost 0; hot swap {swap['wall_s'] * 1e3:.1f} ms in the pump, of which nvcc "
+                 f"{swap['nvcc_s'][0] * 1e3:.1f} ms for the twin's net_sweep library; first "
+                 f"serve of the noisy tenant {first_s * 1e3:.1f} ms (nvcc "
+                 + ", ".join(f"{x * 1e3:.1f}" for x in first_nvcc) + " ms)")
+        self.report["router"]["recalibration"] = {
+            "swap_wall_ms": swap["wall_s"] * 1e3, "twin_nvcc_ms": swap["nvcc_s"][0] * 1e3,
+            "first_serve_ms": first_s * 1e3, "first_plan_nvcc_ms": [x * 1e3 for x in first_nvcc],
+            "census": census}
+
+    def _router_fit(self):
+        reps, ms = {}, {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            reps[device] = tbn.calibration_report(prng.PRNGKey(0), n_scenes=48, repeats=3,
+                                                  device=device)
+            ms[device] = (time.perf_counter() - t0) * 1e3
+        if reps["cuda"] != reps["cpu"]:
+            raise AssertionError("calibration_report differs between the card and the CPU")
+        rep = reps["cuda"]
+        self.say(f"calibration_report(PRNGKey(0), n_scenes=48, repeats=3): card {ms['cuda']:.1f} "
+                 f"ms, CPU {ms['cpu']:.1f} ms, equal; max DAC deviation "
+                 f"{rep['max_dac_deviation']}; fitted means "
+                 + ", ".join(f"{f} {v['mean']:.4f}" for f, v in rep["fields"].items()))
+        self.report["router"]["calibration_report"] = {"ms": ms, "report": rep}
 
     # ------------------------------------------------------------ operators
     def operators(self):
@@ -1645,7 +2002,8 @@ def main() -> int:
 
     s.phase("device", s.device)
     run("build")
-    for name in ("kernels", "main_path", "timing", "binary_timing", "drain_trace", "operators"):
+    for name in ("kernels", "main_path", "timing", "binary_timing", "drain_trace", "router",
+                 "operators"):
         run(name, "build")
     run("operator_timing", "build", "operators")
     run("unfused_kernels", "build")
@@ -1681,6 +2039,7 @@ def main() -> int:
         "library_ms": None,
         "at": f"{TIMED_SCENARIO} B={BATCH} n_bits={N_BITS}",
         "call_ms": t["call_ms"],
+        "router_launches": s.router_launches,
         "ms_b256": s.report["net_sweep"][TIMED_SCENARIO][MAX_BATCH]["ms"],
         "bound_ms_b256": s.report["net_sweep"][TIMED_SCENARIO][MAX_BATCH]["bound_ms"],
         "source_generated": "src/repro_torch/kernels/net_sweep/codegen.py",

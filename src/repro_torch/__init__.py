@@ -1,8 +1,11 @@
 """PyTorch/CUDA port of the memristor Bayesian decision system.
 
 The JAX package ``repro`` is the reference; this package imports torch and
-numpy and nothing of it.  Ported so far: the fused decision path -- scenario
-specs, the ``net_sweep`` CUDA kernel for Hopper (``sm_90a``) beside its plain
-torch version, ``compile_network`` and ``FrameDriver``.  Entry points take
+numpy and nothing of it.  Ported so far: the whole decision path -- scenario
+specs, ``compile_network`` (fused on the per-plan ``net_sweep`` CUDA kernel for
+Hopper, ``sm_90a``, or unfused on the ``sne_encode`` / ``node_mux`` kernels),
+``FrameDriver``, the calibrate-back loop and the multi-tenant ``BayesRouter``
+(``repro_torch.serve``) -- the paper's fusion operators and the enumeration
+oracle, each CUDA kernel beside its plain torch version.  Entry points take
 ``device=`` and default to the card.
 """

@@ -17,11 +17,20 @@
     driver.py      FrameDriver: serve-style batching of evidence frames with
                    power-of-two buckets, non-blocking dispatch on the CUDA
                    stream, confidence-gated retry, fault recovery, swap_net
-
-Still to port (ROADMAP queue 1): the calibrate-back loop (calibrate.py).
+    calibrate.py   calibrate-back loop: compensated DAC programs, hot
+                   recalibration of live drivers, and CPT fitting from the
+                   reference's synthetic detection rollouts (keyed draws)
 """
 
 from repro_torch.bayesnet.analytic import make_posterior_fn, sample_evidence  # noqa: F401
+from repro_torch.bayesnet.calibrate import (  # noqa: F401
+    FITTED_FIELDS,
+    calibration_report,
+    compensated_program,
+    fit_scene_config,
+    recalibrate_driver,
+    recalibrated_network,
+)
 from repro_torch.bayesnet.compile import (  # noqa: F401
     CompiledNetwork,
     compile_network,

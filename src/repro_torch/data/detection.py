@@ -8,14 +8,18 @@ in detection rate and confidence is measurable.
 
 :func:`make_scene` draws from an explicit ``torch.Generator``; it cannot
 reproduce the reference's ``jax.random`` draws, only their distribution.
+:func:`make_scene_keyed` takes a key as the reference's ``make_scene`` does
+and gives its scene bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.kernels.backend import resolve_device
 
 
@@ -85,3 +89,50 @@ def detection_metrics(gt: torch.Tensor, p: torch.Tensor, thresh: float = 0.6):
     fp = (det * (1 - gt)).sum() / torch.clamp((1 - gt).sum(), min=1)
     conf = (p * gt).sum() / n_gt
     return tp, fp, conf
+
+
+def make_scene_keyed(key, cfg: SceneConfig, *, device="cuda"):
+    """:func:`make_scene` drawn from a ``(2,)`` uint32 key, as the reference's.
+
+    The draws are the reference's, value for value: the key splits into 7,
+    obstacle centres and radii come from :func:`~repro_torch.core.prng.randint`
+    and the night flag, the per-obstacle visibility and the pixel noise from
+    :func:`~repro_torch.core.prng.uniform`, on the host.  The maps are then
+    computed on ``device`` in float32, one rounding per operation as the
+    reference's, so the same key gives the reference's scene bit for bit on
+    the card and on the CPU.
+    """
+    dev = resolve_device(device)
+    k1, k2, k3, k4, k5, k6, k7 = prng.split(key, 7)
+    h, w, n = cfg.height, cfg.width, cfg.n_obstacles
+    cy = prng.randint(k1, (n,), 4, h - 4)
+    cx = prng.randint(k2, (n,), 4, w - 4)
+    rad = prng.randint(k3, (n,), 2, 6)
+    f32 = np.float32
+    night = bool(prng.uniform(k5, ()) < f32(cfg.night_fraction))
+    rgb_vis = f32(cfg.rgb_vis_night if night else cfg.rgb_vis_day)
+    rgb_clear = prng.uniform(k4, (n,)) < rgb_vis
+    th_clear = prng.uniform(k7, (n,)) < f32(cfg.thermal_vis)
+    noise = f32(0.06) * prng.uniform(k6, (2, h, w))
+    cy, cx, rad, rgb_clear, th_clear, noise = (
+        torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        for a in (cy, cx, rad, rgb_clear, th_clear, noise))
+
+    yy = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+    xx = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    dist2 = (yy[None] - cy[:, None, None]) ** 2 + (xx[None] - cx[:, None, None]) ** 2
+    inside = dist2 <= rad[:, None, None] ** 2                       # (N, H, W)
+    gt = inside.any(0).to(torch.float32)
+
+    strong, weak = (torch.tensor(f32(v), device=dev) for v in (cfg.strong, cfg.weak))
+    rgb_det = (inside * torch.where(rgb_clear, strong, weak)[:, None, None]).amax(0)
+    th_det = (inside * torch.where(th_clear, strong, weak)[:, None, None]).amax(0)
+
+    half, lo, hi, base = (torch.tensor(f32(v), device=dev) for v in (0.5, 0.02, 0.98, 0.05))
+    one = torch.tensor(f32(1.0), device=dev)
+    p_rgb = torch.clamp(rgb_det * (one - noise[0]) + noise[0] * half, lo, hi)
+    p_th = torch.clamp(th_det * (one - noise[1]) + noise[1] * half, lo, hi)
+    # background base rate
+    p_rgb = torch.where(gt > 0, p_rgb, base + noise[0])
+    p_th = torch.where(gt > 0, p_th, base + noise[1])
+    return gt, p_rgb, p_th, night
