@@ -66,7 +66,27 @@ Phases (any failure makes the script exit non-zero without the result line):
               a forced recalibration of a noisy tenant (card equal to CPU, one
               swap, the swap's wall time and its twin's nvcc seconds); and
               ``calibration_report`` on the card equal to the CPU.
-9. operators -- the paper's fusion operators.  Each of ``sne_encode``,
+9. paper_layer -- the paper-figure layer (``core/*``) and the four examples
+              (``repro_torch.examples``) at the reference benchmarks' own
+              sizes, each flow on the CPU and then on the card, held by
+              ``PAPER_RULES`` (streams, counts and ratios exact; the float
+              draws and curves within stated tolerances): Fig 1/S4 (OU path
+              of 20,000 cycles, 1000 devices, the OU fit, 100,000 endurance
+              cycles), Fig 2b/2c/2e (six transfer-curve points at 2**14 bits,
+              AND in 3 modes and MUX over 50 keys at 100 bits, precision at
+              100/1000/10,000 bits), Table S1 (AND/OR/XOR x 3 modes, MUX, 2**14
+              bits), Fig 3 (inference over 100 keys and a 12-point grid at 100
+              bits, both correlation matrices at 2**14, the marginal variant,
+              the Fig S8 motifs at 2**13, 4096 batched inferences at 128 bits),
+              Fig 4 (30 scenes through fusion_map, detection_fusion of 64
+              boxes at 4096 bits, bayes_fusion at paper-bayes-fusion's widths
+              on a 4096-pixel tile under both entropy generators),
+              encode_via_device (1024 streams x 1024 bits; bits compared
+              outside a margin), then quickstart, route_planning, scene_graph
+              and obstacle_fusion at their scripts' sizes.  Per flow: seconds
+              on the card and launches per kernel; then the throughput model
+              beside the batched operator's measured rate.
+10. operators -- the paper's fusion operators.  Each of ``sne_encode``,
               ``pand_popcount``, ``bayes_decide`` and ``fusion_map`` against
               its plain torch version on the card (bit for bit; fusion_map
               within atol 2e-6, rtol 1e-5) at M 1..3, K 1, 2, 8, 16 and 33,
@@ -82,8 +102,8 @@ Phases (any failure makes the script exit non-zero without the result line):
               versions at their counter origins; the ``bench_latency``
               decision (4096 decisions, M=K=2, 128 bits: fused, composed,
               ``bayes_decide_packed``); and the ``obstacle_fusion`` example
-              flow at 64x64.
-10. operator_timing -- device time per launch (``torch.profiler``, the L2
+              flow at 64x64 (``examples.obstacle_fusion.run``).
+11. operator_timing -- device time per launch (``torch.profiler``, the L2
               flushed before each launch) and per back-to-back call (CUDA
               events) of the four kernels at the full batch and at a
               65,536-pixel slice of it, beside their plain
@@ -96,7 +116,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               bound counts the shared body's least integer work per entropy
               word, logic on the 64 ALU lanes of an SM and multiplies and
               adds free to use all 128, as ``net_sweep``'s.
-11. unfused_kernels -- the ``node_mux`` kernels against their plain versions
+12. unfused_kernels -- the ``node_mux`` kernels against their plain versions
               on the card, bit for bit: gather and rows at 0 to 6 parents
               (per-row tables and shared rows holding thresholds 0, 128, 256
               and the half steps) and at 7 and 8 (the gather on the
@@ -105,7 +125,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               (per-row and shared tables; 6 binary parents at k = 2) and
               its wide path at 9 planes and at 17 parents, k-ary roots, and
               counter origins that wrap 2**32.
-12. unfused_path -- the unfused lowering through its entry points at
+13. unfused_path -- the unfused lowering through its entry points at
               n_bits=4096, B=1024, counts reset just before and read just
               after: 7 scenarios x {``fused=False``, ``share_entropy=True``},
               ``mux_mode='rows'`` on the 4 binary scenarios and
@@ -116,12 +136,12 @@ Phases (any failure makes the script exit non-zero without the result line):
               Then the unfused, shared-entropy and fused posteriors against the
               enumeration oracle: per distinct evidence vector, the posterior
               pooled over its frames within 4.5 sqrt(p (1-p) / accepted).
-13. wide_path -- the wide network through ``compile_network`` fused,
+14. wide_path -- the wide network through ``compile_network`` fused,
               ``fused=False``, ``share_entropy=True`` and ``mux_mode='rows'`` at
               n_bits=4096, B=1024, each ``decide`` bit-equal to
               ``device="cpu"``; counts reset just before and read just after,
               and each wide kernel must have launched.
-14. unfused_timing -- device time per launch and per back-to-back call of the
+15. unfused_timing -- device time per launch and per back-to-back call of the
               node_mux kernels at B=1024 and B=65,536 (n_bits=4096; the wide
               paths at B=256) beside their plain versions and bounds; launches
               of each kernel per unfused ``run`` of each scenario; wall time per
@@ -171,7 +191,10 @@ from repro_torch.bayesnet import (  # noqa: E402
 from repro_torch.bayesnet.reliability import TERMINAL_STATUSES  # noqa: E402
 from repro_torch.configs.paper_bayes import full_config  # noqa: E402
 from repro_torch.core import bitops, prng, rng  # noqa: E402
+from repro_torch.core import correlation, fusion, graph, inference, latency, logic, sne  # noqa: E402
+from repro_torch.core import device as memristor  # noqa: E402
 from repro_torch.data import detection  # noqa: E402
+from repro_torch.examples import obstacle_fusion, quickstart, route_planning, scene_graph  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     backend,
     bayes_decide,
@@ -630,34 +653,15 @@ def _pooled_z(ev, post, acc, exact, shared):
     return zmax, groups
 
 
-def _obstacle_flow(device):
-    """examples/obstacle_fusion.py: a 64x64 night scene, analytic fusion of
-    RGB and thermal, and the stochastic decision on 4096 pixels at 256 bits."""
-    cfg = detection.SceneConfig(height=64, width=64, night_fraction=1.0)
-    gt, p_rgb, p_th, _ = detection.make_scene(torch.Generator().manual_seed(0), cfg,
-                                              device=device)
-    p_modal = torch.stack([torch.stack([q, 1 - q], -1).reshape(-1, 2) for q in (p_rgb, p_th)])
-    fused = fusion_map(p_modal, device=device)[:, 0]
-    rates = {name: [float(v) for v in detection.detection_metrics(gt, q.reshape(gt.shape))]
-             for name, q in (("rgb", p_rgb), ("thermal", p_th), ("fused", fused))}
-    dec, cnt = bayes_decide(prng.PRNGKey(1), p_modal[:, :4096], 256, device=device)
-    stoch = cnt[:, 0].to(torch.float32) / cnt.sum(-1).clamp(min=1).to(torch.float32)
-    return {
-        "fused": fused, "dec": dec, "cnt": cnt, "rates": rates,
-        "mean_abs_err": float((stoch - fused[:4096]).abs().mean()),
-        "agreement": float((dec == (fused[:4096] < 0.5).to(torch.int32)).to(torch.float32).mean()),
-    }
-
-
 def _router(policy, max_batch, device, **kw):
     return BayesRouter(policy, ROUTER_KEY, n_bits=N_BITS, max_batch=max_batch,
                        max_cached_tenants=len(NAMES), device=device, **kw)
 
 
 def _router_workload(n_frames, seed):
-    """Per-tenant evidence, drawn by ancestral sampling from seeded generators."""
-    return {n: analytic.sample_evidence(by_name(n), torch.Generator().manual_seed(seed + i),
-                                        n_frames).numpy() for i, n in enumerate(NAMES)}
+    """Per-tenant evidence, drawn by ancestral sampling from seeded keys."""
+    return {n: analytic.sample_evidence(by_name(n), prng.PRNGKey(seed + i), n_frames,
+                                        device="cpu").numpy() for i, n in enumerate(NAMES)}
 
 
 def _router_round(router, workload, deadline_ms=None):
@@ -707,6 +711,313 @@ def _busy_us(prof):
             busy += b - max(a, end)
             end = b
     return busy, len(spans)
+
+
+# --- the paper layer (core/*, examples/*) at the reference benchmarks' own sizes
+# (benchmarks/bench_fig1..4, bench_table_s1; examples/*.py).  Each flow runs on
+# one device and returns named results; PAPER_RULES says how the card's result
+# is held against the CPU's: "exact" (streams, counts, ratios of counts, and
+# the float work both devices round alike), or (atol, rtol) with its reason.
+PAPER_KEY = prng.PRNGKey(0)
+OU_ATOL = 1e-5        # V: normal() differs by a few ulp (log1p, sqrt), damped by the AR(1)
+NORMAL_RTOL = 1e-5    # exp() of such draws, and the mean's summation order
+CURVE_ATOL = 1e-6     # sigmoid / log of the transfer curves
+ORACLE_ATOL = 5e-7    # the enumeration oracle's float32 sums, summed in another order
+RATE_ATOL = 0.01      # detection rates: a pixel within fusion_map's tolerance of the
+                      # 0.6 threshold may flip; one pixel moves a scene's rate by < 0.008
+VIA_MARGIN = 1e-5     # V: encode_via_device's bits are compared where |V_in - V_th| > this
+VIA_COUNT = 2         # ... and each stream's popcount within this many bits
+FUSION_TILE, FUSION_M, FUSION_K, FUSION_BITS = 4096, 2, 16, 128   # paper-bayes-fusion widths
+VIA_STREAMS, VIA_BITS = 1024, 1024
+INFER_BATCH, INFER_BITS = 4096, 128   # bench_fig3's batched operator
+
+
+def _fold(i):
+    return prng.fold_in(PAPER_KEY, i)
+
+
+def _paper_fig1(dev):
+    """bench_fig1_device: the OU path (20,000 cycles), 1000 devices, the OU
+    fit, an endurance trace of 100,000 cycles."""
+    t0 = time.perf_counter()
+    path = memristor.sample_ou_path(PAPER_KEY, 20000, device=dev)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    ou_s = time.perf_counter() - t0
+    mus = memristor.sample_devices(prng.PRNGKey(1), 1000, device=dev)
+    hrs, lrs = memristor.endurance_trace(prng.PRNGKey(2), 100000, device=dev)
+    fit = torch.tensor(memristor.fit_ou(path), dtype=torch.float64)
+    return {"path": path, "mus": mus, "hrs": hrs, "lrs": lrs, "fit": fit, "ou_s": ou_s,
+            "summary": {"vth_mean": float(path.mean()), "vth_std": float(path.std()),
+                        "d2d_cv": float(mus.std() / mus.mean()),
+                        "ou_fit": fit.tolist(),
+                        "min_hrs_over_max_lrs": float(hrs.min() / lrs.max())}}
+
+
+def _paper_fig2(dev):
+    """bench_fig2_logic: six transfer-curve points at 2**14 bits, AND in three
+    modes and MUX over 50 keys at 100 bits, AND's precision at 100, 1000 and
+    10,000 bits over 20 keys."""
+    n = 1 << 14
+    curves, streams = [], []
+    for fn, vs, scale in ((sne.p_from_vin, (1.8, 2.24, 2.8), 100),
+                          (sne.p_from_vref, (0.4, 0.57, 0.75), 1000)):
+        for v in vs:
+            p_t = fn(v, device=dev)
+            curves.append(p_t)
+            streams.append(sne.encode_uncorrelated(_fold(int(v * scale)), p_t, n, device=dev))
+    out = {"curves": torch.stack(curves), "curve_streams": torch.stack(streams)}
+    for mode in logic.Corr:
+        runs = [logic.prob_and(_fold(i), 0.8, 0.6, 100, mode, device=dev) for i in range(50)]
+        out[f"and_{mode.value}"] = torch.stack([r[0] for r in runs])
+        out[f"and_{mode.value}_est"] = torch.stack([r[1] for r in runs])
+    runs = [logic.prob_mux(_fold(i), 0.5, 0.8, 0.6, 100, device=dev) for i in range(50)]
+    out["mux"] = torch.stack([r[0] for r in runs])
+    for nbits in (100, 1000, 10000):
+        out[f"precision_{nbits}"] = torch.stack([
+            logic.prob_and(_fold(100 + i), 0.8, 0.6, nbits, logic.Corr.UNCORRELATED,
+                           device=dev)[1] for i in range(20)])
+    out["summary"] = {
+        **{f"and_{m.value}_mean": float(out[f"and_{m.value}_est"].mean()) for m in logic.Corr},
+        **{f"precision_{nb}_mean_abs_err": float((out[f"precision_{nb}"] - 0.48).abs().mean())
+           for nb in (100, 1000, 10000)}}
+    return out
+
+
+def _paper_table_s1(dev):
+    """bench_table_s1: AND/OR/XOR x 3 correlation modes and the MUX at 2**14 bits."""
+    n, pa, pb = 1 << 14, 0.7, 0.4
+    out, summary = {}, {}
+    ops = (("AND", logic.prob_and, logic.expected_and), ("OR", logic.prob_or, logic.expected_or),
+           ("XOR", logic.prob_xor, logic.expected_xor))
+    for j, (name, op, expected) in enumerate(ops):
+        for m, mode in enumerate(logic.Corr):
+            c, est, _ = op(_fold(3 * j + m), pa, pb, n, mode, device=dev)
+            exp = expected(pa, pb, mode, device=dev)
+            out[f"{name}_{mode.value}"], out[f"{name}_{mode.value}_expected"] = c, exp
+            summary[f"{name}[{mode.value}]"] = (float(exp), float(est))
+    c, est, _ = logic.prob_mux(PAPER_KEY, 0.3, pa, pb, n, device=dev)
+    out["MUX"] = c
+    summary["MUX"] = (float(logic.expected_mux(0.3, pa, pb, device=dev)), float(est))
+    out["summary"] = summary
+    return out
+
+
+def _paper_fig3(dev):
+    """bench_fig3_inference: the route-planning posterior over 100 keys and a
+    prior/likelihood grid over 20 keys each at 100 bits; the correlation
+    matrices at 2**14 bits; the marginal variant; the two Fig S8 motifs at
+    2**13 bits; the batched operator (4096 inferences at 128 bits)."""
+    out = {}
+    runs = [inference.bayes_inference(_fold(i), 0.57, 0.72, 0.6, n_bits=100, device=dev)
+            for i in range(100)]
+    out["route_ratio"] = torch.stack([r.posterior_ratio for r in runs])
+    out["route_scan"] = torch.stack([r.posterior_scan for r in runs])
+    grid = []
+    for a, pa in enumerate((0.2, 0.4, 0.6, 0.8)):
+        for b, pba in enumerate((0.3, 0.6, 0.9)):
+            grid += [inference.bayes_inference(_fold(1000 + 100 * (3 * a + b) + i), pa, pba, 0.5,
+                                               n_bits=100, device=dev).posterior_ratio
+                     for i in range(20)]
+    out["grid"] = torch.stack(grid)
+    tr = inference.bayes_inference(PAPER_KEY, 0.57, 0.72, 0.6, n_bits=1 << 14, device=dev)
+    out["streams"] = torch.stack(list(tr.streams.values()))
+    out["pearson"] = correlation.correlation_matrix(tr.streams, tr.n_bits, "pearson")
+    out["scc"] = correlation.correlation_matrix(tr.streams, tr.n_bits, "scc")
+    mg = inference.bayes_inference_marginal(PAPER_KEY, 0.57, 0.78, 0.72, n_bits=1 << 14,
+                                            device=dev)
+    out["marginal"] = torch.stack([mg.posterior_scan, mg.posterior_ratio])
+    out["marginal_denom"] = mg.streams["denom"]
+    cpt = [[0.1, 0.4], [0.6, 0.9]]
+    s8b = graph.two_parent_one_child(PAPER_KEY, 0.6, 0.3, cpt, n_bits=1 << 13, device=dev)
+    s8c = graph.one_parent_two_child(PAPER_KEY, 0.5, (0.9, 0.2), (0.8, 0.3), n_bits=1 << 13,
+                                     device=dev)
+    out["s8"] = torch.stack(list(s8b[:2]) + list(s8c[:2]))
+    out["s8_analytic"] = torch.stack([s8b[2], s8c[2]])
+    pa_v = torch.full((INFER_BATCH,), 0.57, device=dev)
+    batched = inference.bayes_inference(PAPER_KEY, pa_v, 0.72, 0.6, n_bits=INFER_BITS, device=dev)
+    out["batched"] = batched.posterior_ratio
+    names = list(tr.streams)
+    i_a, i_n, i_d = names.index("A"), names.index("numer"), names.index("denom")
+    out["summary"] = {
+        "route_theory": float(tr.posterior_analytic), "route_mean_100bit": float(out["route_ratio"].mean()),
+        "route_std_100bit": float(out["route_ratio"].std()),
+        "rho_A_BA": float(out["pearson"][i_a, names.index("B|A")]),
+        "rho_numer_denom": float(out["pearson"][i_n, i_d]), "scc_numer_denom": float(out["scc"][i_n, i_d]),
+        "marginal": [float(v) for v in out["marginal"]], "s8": [float(v) for v in out["s8"]],
+        "s8_analytic": [float(v) for v in out["s8_analytic"]]}
+    return out
+
+
+def _paper_fig4(dev):
+    """bench_fig4_fusion: 30 scenes of 64x64 through make_scene and fusion_map,
+    detection_fusion of 64 boxes at 4096 bits; then bayes_fusion at
+    paper-bayes-fusion's widths (M=2, K=16, 128 bits) on a 4096-pixel tile
+    under both entropy generators."""
+    cfg = detection.SceneConfig(height=64, width=64)
+    maps, rates = [], []
+    for i in range(30):
+        gt, p_rgb, p_th, _ = detection.make_scene(_fold(i), cfg, device=dev)
+        pm = torch.stack([torch.stack([q, 1 - q], -1).reshape(-1, 2) for q in (p_rgb, p_th)])
+        fused = fusion_map(pm, device=dev)[:, 0].reshape(gt.shape)
+        maps.append(torch.stack([gt, p_rgb, p_th]))
+        rates.append(torch.stack([torch.stack(detection.detection_metrics(gt, q))
+                                  for q in (p_rgb, p_th, fused)]))
+    out = {"scenes": torch.stack(maps), "rates": torch.stack(rates)}
+    _, p_rgb, p_th, _ = detection.make_scene(_fold(999), cfg, device=dev)
+    sel = torch.stack([p_rgb.reshape(-1)[:64], p_th.reshape(-1)[:64]], dim=-1)
+    out["detection"] = fusion.detection_fusion(prng.PRNGKey(7), sel, n_bits=1 << 12, device=dev)
+    out["detection_analytic"] = fusion.fuse_analytic(torch.stack([sel, 1 - sel], -1))[:, 0]
+    p = np.random.default_rng(4).dirichlet(np.ones(FUSION_K), size=(FUSION_TILE, FUSION_M))
+    for impl in ("fast", "threefry"):
+        tr = fusion.bayes_fusion(PAPER_KEY, p.astype(np.float32), n_bits=FUSION_BITS, impl=impl,
+                                 device=dev)
+        out[f"fusion_{impl}_streams"] = torch.cat([tr.streams["numer"],
+                                                   tr.streams["denom"][:, None]], 1)
+        out[f"fusion_{impl}"] = torch.stack([tr.fused_scan, tr.fused_ratio])
+        out[f"fusion_{impl}_analytic"] = tr.fused_analytic
+    mean_rates = out["rates"].mean(0)[:, 0]
+    agree = (out["fusion_fast"][1].argmax(-1) == out["fusion_fast_analytic"].argmax(-1))
+    out["summary"] = {
+        "detection_rate_rgb_thermal_fused": [float(v) for v in mean_rates],
+        "confidence_rgb_thermal_fused": [float(v) for v in out["rates"].mean(0)[:, 2]],
+        "detection_mean_abs_err": float((out["detection"] - out["detection_analytic"]).abs().mean()),
+        "tile_argmax_agreement": float(agree.to(torch.float32).mean())}
+    return out
+
+
+def _paper_via_device(dev):
+    """encode_via_device: 1024 streams x 1024 bits, each on its own OU path."""
+    p = np.random.default_rng(6).uniform(0.02, 0.98, VIA_STREAMS).astype(np.float32)
+    words = sne.encode_via_device(PAPER_KEY, p, VIA_BITS, device=dev)
+    v_in, vth = sne.device_levels(PAPER_KEY, p, VIA_BITS, device=dev)
+    est = bitops.decode(words, VIA_BITS)
+    return {"words": words, "v_in": v_in, "vth": vth,
+            "summary": {"mean_abs_err_vs_p": float((est.cpu() - torch.from_numpy(p)).abs().mean())}}
+
+
+def _paper_quickstart(dev):
+    r = quickstart.run(dev)
+    tr, ftr = r["inference"], r["fusion"]
+    return {"streams": torch.stack([r["stream"], r["and_unc"], r["and_pos"], r["quotient"]]),
+            "inference_streams": torch.stack(list(tr.streams.values())),
+            "inference": torch.stack([tr.posterior_scan, tr.posterior_ratio]),
+            "inference_analytic": tr.posterior_analytic,
+            "fusion_streams": torch.cat([ftr.streams["numer"], ftr.streams["denom"][None]]),
+            "fusion": torch.stack([ftr.fused_scan, ftr.fused_ratio]),
+            "fusion_analytic": ftr.fused_analytic,
+            "summary": {"inference": float(tr.posterior_ratio), "fusion": float(ftr.fused_ratio[0])}}
+
+
+def _paper_route_planning(dev):
+    r = route_planning.run(dev)
+    return {"frames": torch.tensor(np.stack([np.append(post, acc) for _, (post, acc) in r["frames"]])),
+            "theory": r["theory"], "rho": r["rho"],
+            "audit_streams": torch.stack([r["streams"][n][0] for n in r["names"]]),
+            "summary": {"posteriors": [float(post[0]) for _, (post, _) in r["frames"]],
+                        "rho": r["rho"].cpu().tolist()}}
+
+
+def _paper_scene_graph(dev):
+    r = scene_graph.run(dev)
+    streamed = r["streamed"]
+    post, dec, acc = r["decide"]
+    return {"motif": torch.stack([r["motif_post"][0, 0], r["motif_acc"][0].to(torch.float32)]),
+            "motif_expect": r["motif_expect"], "post": r["post"], "acc": r["acc"],
+            "shared_post": r["shared_post"], "exact": r["exact"],
+            "streamed": torch.tensor(np.stack([streamed[i][0] for i in (0, 1)])),
+            "class_post": r["class_post"], "class_acc": r["class_acc"],
+            "decide": torch.cat([post.reshape(-1), dec.reshape(-1).to(torch.float32),
+                                 acc.reshape(-1).to(torch.float32)]),
+            "summary": {"frames_per_s_fused": float(r["ev"].shape[0] / r["seconds"]),
+                        "shared_over_fused": float(r["shared_seconds"] / r["seconds"]),
+                        "oracle_mean_abs_err": float(r["err"].mean()),
+                        "class_frames_per_s": float(r["ev"].shape[0] / r["class_seconds"])}}
+
+
+def _paper_obstacle_fusion(dev):
+    r = obstacle_fusion.run(dev)
+    return {"fused": r["fused"], "dec": r["dec"], "cnt": r["cnt"],
+            "rates": torch.tensor([r["rates"][n] for n in ("RGB", "thermal", "fused")]),
+            "summary": {"rates": r["rates"], "mean_abs_err": r["mean_abs_err"],
+                        "agreement": r["agreement"]}}
+
+
+_EXACT = "exact"
+FM_TOL = (FM_ATOL, FM_RTOL)
+# flow -> (function, {result: rule}); results a rule does not name are reported only
+PAPER_FLOWS = {
+    "fig1": (_paper_fig1, {"path": (OU_ATOL, 0.0), "mus": (1e-6, 0.0), "hrs": (0.0, NORMAL_RTOL),
+                           "lrs": (0.0, NORMAL_RTOL), "fit": (OU_ATOL, 0.0)}),
+    "fig2": (_paper_fig2, {"curves": (CURVE_ATOL, 0.0), "curve_streams": _EXACT,
+                           **{f"and_{m.value}{x}": _EXACT for m in logic.Corr for x in ("", "_est")},
+                           "mux": _EXACT, **{f"precision_{nb}": _EXACT for nb in (100, 1000, 10000)}}),
+    "table_s1": (_paper_table_s1, {**{f"{op}_{m.value}{x}": (_EXACT if not x else (1e-7, 0.0))
+                                      for op in ("AND", "OR", "XOR") for m in logic.Corr
+                                      for x in ("", "_expected")}, "MUX": _EXACT}),
+    "fig3": (_paper_fig3, {k: _EXACT for k in ("route_ratio", "route_scan", "grid", "streams",
+                                               "pearson", "scc", "marginal", "marginal_denom",
+                                               "s8", "batched")} | {"s8_analytic": (1e-7, 0.0)}),
+    "fig4": (_paper_fig4, {"scenes": _EXACT, "rates": (RATE_ATOL, 0.0), "detection": _EXACT,
+                           "detection_analytic": FM_TOL,
+                           **{f"fusion_{i}{x}": FM_TOL if x == "_analytic" else _EXACT
+                              for i in ("fast", "threefry") for x in ("_streams", "", "_analytic")}}),
+    "encode_via_device": (_paper_via_device, {"v_in": (OU_ATOL, 0.0), "vth": (OU_ATOL, 0.0)}),
+    "quickstart": (_paper_quickstart, {"streams": _EXACT, "inference_streams": _EXACT,
+                                       "inference": _EXACT, "inference_analytic": (1e-7, 0.0),
+                                       "fusion_streams": _EXACT, "fusion": _EXACT,
+                                       "fusion_analytic": FM_TOL}),
+    "route_planning": (_paper_route_planning, {"frames": _EXACT, "theory": (ORACLE_ATOL, 0.0),
+                                               "rho": _EXACT, "audit_streams": _EXACT}),
+    "scene_graph": (_paper_scene_graph, {"motif": _EXACT, "motif_expect": (1e-7, 0.0),
+                                         "post": _EXACT, "acc": _EXACT, "shared_post": _EXACT,
+                                         "exact": (ORACLE_ATOL, 0.0), "streamed": _EXACT,
+                                         "class_post": _EXACT, "class_acc": _EXACT,
+                                         "decide": _EXACT}),
+    "obstacle_fusion": (_paper_obstacle_fusion, {"fused": FM_TOL, "dec": _EXACT, "cnt": _EXACT,
+                                                 "rates": (RATE_ATOL, 0.0)}),
+}
+
+
+def _hold(flow, card, cpu, rules):
+    """Hold the card's named results against the CPU's by ``rules``; returns
+    {result: max abs difference}."""
+    errs = {}
+    for name, rule in rules.items():
+        a = torch.as_tensor(card[name]).cpu()
+        b = torch.as_tensor(cpu[name]).cpu()
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{flow}.{name}: card {tuple(a.shape)} {a.dtype}, "
+                                 f"CPU {tuple(b.shape)} {b.dtype}")
+        diff = (a.to(torch.float64) - b.to(torch.float64)).abs()
+        errs[name] = float(diff.max()) if diff.numel() else 0.0
+        if rule == _EXACT:
+            ok = torch.equal(a, b)
+        else:
+            atol, rtol = rule
+            ok = bool(torch.all(diff <= atol + rtol * b.to(torch.float64).abs()))
+        if not ok:
+            raise AssertionError(f"{flow}.{name}: the card differs from the CPU beyond "
+                                 f"{rule} (max abs diff {errs[name]})")
+    return errs
+
+
+def _hold_via_device(card, cpu):
+    """The margin rule: bits equal wherever both devices put |V_in - V_th|
+    above VIA_MARGIN, and each stream's popcount within VIA_COUNT."""
+    bits = [bitops.unpack_bits(r["words"].cpu(), VIA_BITS).to(torch.bool) for r in (card, cpu)]
+    clear = torch.ones_like(bits[0])
+    for r in (card, cpu):
+        clear &= ((r["v_in"][:, None] - r["vth"]).abs() > VIA_MARGIN).cpu()
+    flips = int((bits[0] != bits[1])[clear].sum())
+    count_diff = int((bitops.popcount(card["words"].cpu()) - bitops.popcount(cpu["words"])).abs().max())
+    inside = int((~clear).sum())
+    if flips or count_diff > VIA_COUNT:
+        raise AssertionError(f"encode_via_device: {flips} bits differ outside the margin, "
+                             f"popcounts differ by up to {count_diff}")
+    return {"bits_inside_margin": inside, "bits_differing_outside": flips,
+            "popcount_max_diff": count_diff}
+
 
 
 class Smoke:
@@ -760,6 +1071,8 @@ class Smoke:
     def build(self):
         """One nvcc per kernel source and per net_sweep program, all started together."""
         plans = {_plan(n, noise, ep) for n, noise, ep, *_ in self._kernel_cases()}
+        plans |= {sweep_plan(spec, spec.queries, spec.evidence)       # the examples' own networks
+                  for spec in (route_planning.SPEC, scene_graph.MOTIF)}
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES) + len(plans)) as pool:
             libs = {name: pool.submit(backend.build_library, mod.SOURCE,
@@ -1214,8 +1527,8 @@ class Smoke:
 
     def _router_recalibration(self):
         spec = by_name(RECAL_TENANT)
-        ev = analytic.sample_evidence(spec, torch.Generator().manual_seed(61),
-                                      3 * RECAL_FRAMES).numpy()
+        ev = analytic.sample_evidence(spec, prng.PRNGKey(61), 3 * RECAL_FRAMES,
+                                      device="cpu").numpy()
         runs = {}
         for device in ("cuda", "cpu"):
             r = _router(RouterPolicy(), MAX_BATCH, device, drift=tbn.DriftPolicy(warmup=2))
@@ -1294,6 +1607,54 @@ class Smoke:
         self.report["router"]["calibration_report"] = {"ms": ms, "report": rep}
 
     # ------------------------------------------------------------ operators
+    def paper_layer(self):
+        """The paper-figure layer and the four examples at the reference's
+        sizes: each flow on the CPU, then on the card with launch counts reset
+        just before and read just after, held by PAPER_RULES."""
+        report = self.report["paper_layer"] = {}
+        builds = net_sweep_kernel.net_sweep_cuda.builds
+        for flow, (fn, rules) in PAPER_FLOWS.items():
+            cpu = fn("cpu")
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.perf_counter()
+            card = fn("cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {k: v for k, v in _launches().items() if v}
+            errs = _hold(flow, card, cpu, rules)
+            row = report[flow] = {"card_s": secs, "launches": launches, "max_abs_diff": errs,
+                                  "summary": card["summary"]}
+            if flow == "encode_via_device":
+                row["margin_rule"] = card["summary"]["margin_rule"] = _hold_via_device(card, cpu)
+            if flow == "fig1":
+                row["ou_card_s"] = card["ou_s"]
+                row["ou_ms_per_step"] = card["ou_s"] / 20000 * 1e3
+            exact = sum(r == _EXACT for r in rules.values())
+            self.say(f"paper_layer {flow}: card {secs:.3f} s, launches {launches or 'none'}; "
+                     f"card = CPU ({exact} results exact, {len(rules) - exact} within stated "
+                     f"tolerances; max abs diff {max(errs.values(), default=0.0):.3g}); "
+                     f"{json.dumps(card['summary'], default=str)}")
+        if net_sweep_kernel.net_sweep_cuda.builds != builds:
+            raise AssertionError("a net_sweep program was built inside the paper layer: "
+                                 "the build phase must build the examples' programs")
+        # the throughput model against the batched inference operator's rate
+        p = torch.full((INFER_BATCH,), 0.57, device="cuda")
+
+        def call():
+            return inference.bayes_inference(PAPER_KEY, p, 0.72, 0.6, n_bits=INFER_BITS,
+                                             device="cuda").posterior_ratio
+        ms = _event_ms(call, reps=20)
+        measured = INFER_BATCH / (ms * 1e-3)
+        model = latency.throughput_model(self.int32_ops_per_s, n_bits=INFER_BITS)
+        report["throughput"] = {"measured_decisions_per_s": measured, "ms_per_call": ms,
+                                "model_decisions_per_s": model,
+                                "int32_ops_per_s": self.int32_ops_per_s}
+        self.say(f"throughput: batched bayes_inference ({INFER_BATCH} decisions at {INFER_BITS} "
+                 f"bits, plain torch on the card) {ms:.3f} ms per call = {measured:,.0f} "
+                 f"decisions/s; latency.throughput_model at {self.int32_ops_per_s / 1e12:.1f} T "
+                 f"int32 ops/s predicts {model:,.0f} ({model / measured:.0f}x the measured rate)")
+
     def operators(self):
         self.op_err = {"sne_encode": 0, "pand_popcount": 0, "bayes_decide": 0, "fusion_map": 0.0}
         self._operator_checks()
@@ -1356,7 +1717,7 @@ class Smoke:
         p[:, 7] = 0.0                                                      # ties at count 0
         lat_p = torch.rand((2, LAT_DECISIONS, 2), generator=gen, device="cuda")
         lat_want = bayes_decide(OP_KEY, lat_p.cpu(), LAT_BITS, device="cpu")
-        obstacle_want = _obstacle_flow("cpu")
+        obstacle_want = obstacle_fusion.run("cpu")
         torch.cuda.synchronize()
         _reset_launches()                                   # the operator path starts
         t0 = time.perf_counter()
@@ -1370,7 +1731,7 @@ class Smoke:
         lat = {"fused": bayes_decide(OP_KEY, lat_p, LAT_BITS),
                "composed": _composed(OP_KEY, lat_p, LAT_BITS),
                "packed": bayes_decide_packed(OP_KEY, lat_p, LAT_BITS)}
-        obstacle = _obstacle_flow("cuda")
+        obstacle = obstacle_fusion.run("cuda")
         torch.cuda.synchronize()
         self.op_launches = _launches()                      # the operator path ends
         for name in ("sne_encode", "pand_popcount", "bayes_decide", "fusion_map"):
@@ -1676,8 +2037,8 @@ class Smoke:
         cases += [(n, "rows") for n in NAMES if by_name(n).max_card() == 2]
         cases += [("pedestrian-night", "fill"), ("obstacle-class", "fill")]
         key = prng.PRNGKey(23)
-        ev = {n: analytic.sample_evidence(by_name(n), torch.Generator().manual_seed(11),
-                                          BATCH).numpy() for n in NAMES}
+        ev = {n: analytic.sample_evidence(by_name(n), prng.PRNGKey(11), BATCH,
+                                          device="cpu").numpy() for n in NAMES}
         drain = {n: _evidence(by_name(n), UNFUSED_DRAIN, seed=19) for n in NAMES}
         plain, refs = {}, {}
         for name, mode in cases:
@@ -1767,7 +2128,7 @@ class Smoke:
         modes = {"fused": (wide, {}), "unfused": (wide, dict(fused=False)),
                  "shared": (wide, dict(share_entropy=True)),
                  "rows": (wide_spec(tbn, 7), dict(mux_mode="rows"))}
-        ev = {m: analytic.sample_evidence(spec, torch.Generator().manual_seed(12), BATCH).numpy()
+        ev = {m: analytic.sample_evidence(spec, prng.PRNGKey(12), BATCH, device="cpu").numpy()
               for m, (spec, _) in modes.items()}
         want = {m: compile_network(spec, n_bits=N_BITS, device="cpu", **kw).decide(key, ev[m])
                 for m, (spec, kw) in modes.items()}
@@ -2003,7 +2364,7 @@ def main() -> int:
     s.phase("device", s.device)
     run("build")
     for name in ("kernels", "main_path", "timing", "binary_timing", "drain_trace", "router",
-                 "operators"):
+                 "paper_layer", "operators"):
         run(name, "build")
     run("operator_timing", "build", "operators")
     run("unfused_kernels", "build")

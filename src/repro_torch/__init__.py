@@ -6,6 +6,9 @@ specs, ``compile_network`` (fused on the per-plan ``net_sweep`` CUDA kernel for
 Hopper, ``sm_90a``, or unfused on the ``sne_encode`` / ``node_mux`` kernels),
 ``FrameDriver``, the calibrate-back loop and the multi-tenant ``BayesRouter``
 (``repro_torch.serve``) -- the paper's fusion operators and the enumeration
-oracle, each CUDA kernel beside its plain torch version.  Entry points take
-``device=`` and default to the card.
+oracle, each CUDA kernel beside its plain torch version; and the
+paper-figure layer (``repro_torch.core``: device model, SNEs, probabilistic
+logic, correlation, inference, the Fig S8 motifs, stochastic fusion, the
+latency model) with the four paper examples (``repro_torch.examples``).
+Entry points take ``device=`` and default to the card.
 """

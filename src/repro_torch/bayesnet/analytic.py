@@ -32,7 +32,7 @@ import torch
 
 from repro_torch.bayesnet.noise import NoiseModel, perturbed_cdf_rows
 from repro_torch.bayesnet.spec import NetworkSpec
-from repro_torch.core import rng
+from repro_torch.core import prng, rng
 from repro_torch.kernels import backend
 from repro_torch.kernels.net_sweep.common import epoch_word_bounds
 
@@ -186,34 +186,37 @@ def make_posterior_fn(
     return posterior
 
 
-def _sample_joint(spec: NetworkSpec, generator: torch.Generator, batch: int) -> torch.Tensor:
+def _sample_joint(spec: NetworkSpec, key, batch: int, device) -> torch.Tensor:
     """Ancestral sampling: (B, N) int32 values in declared node order.
 
-    Each node, in topological order, draws ``batch`` uniforms from
-    ``generator`` and takes value ``#{v : u < P(value >= v | parents)}``.
+    Each node, in topological order, takes the next split of ``key``, draws
+    ``batch`` uniforms under it on ``device``
+    (:func:`~repro_torch.core.prng.device_uniform`, the reference's draws bit
+    for bit) and takes value ``#{v : u < P(value >= v | parents)}``.
     """
-    dev = generator.device
+    dev = backend.resolve_device(device)
     idx = {node.name: j for j, node in enumerate(spec.nodes)}
     vals = [None] * spec.n_nodes
     for name in spec.topo_order():
         node = spec.node(name)
+        key, sub = prng.split(key)
         rows = np.asarray(spec.cpt_rows(name), np.float32)
         tails = torch.from_numpy(np.cumsum(rows[:, ::-1], axis=-1)[:, ::-1][:, 1:].copy()).to(dev)
         row = torch.zeros((batch,), dtype=torch.int64, device=dev)
         for parent in node.parents:
             row = row * spec.card(parent) + vals[idx[parent]]
-        u = torch.rand((batch,), generator=generator, device=dev)
+        u = prng.device_uniform(sub, (batch,), device=dev)
         vals[idx[name]] = (u[:, None] < tails[row]).sum(dim=-1)
     return torch.stack(vals, dim=-1).to(torch.int32)
 
 
-def sample_evidence(spec: NetworkSpec, generator: torch.Generator, batch: int,
-                    evidence: Sequence[str] | None = None) -> torch.Tensor:
+def sample_evidence(spec: NetworkSpec, key, batch: int,
+                    evidence: Sequence[str] | None = None, *, device="cuda") -> torch.Tensor:
     """Draw (B, n_ev) int32 evidence frames by ancestral joint sampling.
 
-    Frames are distributed as the network predicts its sensors to fire; they
-    lie on ``generator``'s device.
+    Frames are distributed as the network predicts its sensors to fire, and
+    equal the reference's for the same key; they lie on ``device``.
     """
     evidence = tuple(evidence if evidence is not None else spec.evidence)
-    full = _sample_joint(spec, generator, batch)
+    full = _sample_joint(spec, key, batch, device)
     return full[:, [spec.index(e) for e in evidence]]

@@ -34,7 +34,7 @@ thresholds are literals of the generated kernel), so the re-lowering runs
 :func:`calibration_report`).  The scenario CPTs are parameterised by a
 :class:`~repro_torch.data.detection.SceneConfig`; instead of trusting the
 hand-set values, count confusion statistics over synthetic detection
-rollouts (:func:`~repro_torch.data.detection.make_scene_keyed`, the
+rollouts (:func:`~repro_torch.data.detection.make_scene`, the
 reference's draws from the same key) and invert the generator's known
 observation bias to recover the config.  ``calibration_report`` quantifies
 the fit's bias/variance against the hand-set reference and the resulting
@@ -52,7 +52,7 @@ from repro_torch.bayesnet.compile import CompiledNetwork, compile_network
 from repro_torch.bayesnet.noise import NoiseModel
 from repro_torch.bayesnet.spec import NetworkSpec
 from repro_torch.core import prng, rng
-from repro_torch.data.detection import SceneConfig, detection_metrics, make_scene_keyed
+from repro_torch.data.detection import SceneConfig, detection_metrics, make_scene
 
 # make_scene blends 6% uniform noise toward 0.5 into every detector pixel:
 # E[p | strength s] = s (1 - E[u]) + 0.5 E[u] with u ~ U(0, 0.06), so the
@@ -195,7 +195,7 @@ def fit_scene_config(
     hit_sum = hit_n = miss_sum = miss_n = 0.0
     n_night = 0
     for k in prng.split(key, n_scenes):
-        gt, p_rgb, p_th, night = make_scene_keyed(k, cfg, device=device)
+        gt, p_rgb, p_th, night = make_scene(k, cfg, device=device)
         n_night += night
         tp_r, _, _ = detection_metrics(gt, p_rgb, thresh)
         tp_t, _, _ = detection_metrics(gt, p_th, thresh)

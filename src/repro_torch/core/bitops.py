@@ -143,6 +143,18 @@ def decode(words: torch.Tensor, n_bits: int) -> torch.Tensor:
         (), n_bits, dtype=torch.float32, device=words.device)
 
 
+def band(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a & b
+
+
+def bor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a | b
+
+
+def bxor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a ^ b
+
+
 def bnot(a: torch.Tensor, n_bits: int) -> torch.Tensor:
     """Bitwise NOT restricted to the valid bit positions (padding stays zero)."""
     return ~a & pad_mask(n_bits, device=a.device)

@@ -14,6 +14,8 @@ is a bitwise subset of the denominator stream, E[q] -> P(n) / P(d).
   Bit-identical to ``cordiv_scan``.
 * :func:`cordiv_ratio` -- the closed-form fixed point
   ``popcount(n & d) / popcount(d)``.
+* :func:`make_superset` -- a denominator stream built around a numerator,
+  so that the subset CORDIV needs holds bitwise.
 
 Words are int32 bit patterns (:mod:`repro_torch.core.bitops`); int32 ``<<``
 wraps and ``(v >> 31) & 1`` reads the top bit, so no int64 carrier is needed.
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import bitops
+from repro_torch.core import bitops, sne
 
 
 def ratio_from_counts(numer_count, denom_count) -> torch.Tensor:
@@ -96,3 +98,19 @@ def cordiv_fill(numer: torch.Tensor, denom: torch.Tensor, n_bits: int):
 def cordiv_ratio(numer: torch.Tensor, denom: torch.Tensor) -> torch.Tensor:
     """Closed-form CORDIV fixed point: popcount(n & d) / popcount(d), 0 at 0/0."""
     return ratio_from_counts(bitops.popcount(numer & denom), bitops.popcount(denom))
+
+
+def make_superset(key, numer: torch.Tensor, p_n, p_d, n_bits: int) -> torch.Tensor:
+    """Superset completion: a stream d with P(d) = p_d and numer subset-of d.
+
+    ``d = numer | g``, g an independent stream of probability
+    ``(p_d - p_n) / (1 - p_n)``; used where the denominator is known only
+    marginally, so that CORDIV's correlation requirement still holds.  Runs
+    on ``numer``'s device.
+    """
+    dev = numer.device
+    p_n = torch.as_tensor(p_n, dtype=torch.float32, device=dev)
+    p_d = torch.as_tensor(p_d, dtype=torch.float32, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    p_g = torch.clamp((p_d - p_n) / torch.clamp(one - p_n, min=1e-6), 0.0, 1.0)
+    return numer | sne.encode_uncorrelated(key, p_g, n_bits, device=dev)

@@ -10,16 +10,31 @@ memristors:
 * switching time ~50 ns, relaxation ~1,100 ns (< 4 us per encoded bit),
   switching energy ~0.16 nJ, endurance > 1e6 cycles.
 
-Only the calibrated constants are ported so far: the crossbar noise model
-(:mod:`repro_torch.bayesnet.noise`) derives its read and wear terms from them.
-The trajectory simulators (OU paths, device sampling, endurance traces) are
-still to be ported (ROADMAP queue 1).
+This module is the *simulator* side of the reproduction: it generates
+switching trajectories statistically indistinguishable (by the paper's own OU
+fit) from the measured devices, and carries the timing and energy constants
+of :mod:`repro_torch.core.latency` and the crossbar noise model
+(:mod:`repro_torch.bayesnet.noise`).
+
+Draws come from :func:`~repro_torch.core.prng.normal` on the requested
+device.  The OU path is a recurrence over time: :func:`ou_scan` runs it as
+one loop over time steps, each step a few torch operations over all
+streams and devices at once, on the device (the reference's ``lax.scan``;
+20,000 steps at Fig 1's size).  Each step rounds as the reference's, so the
+same noise gives the reference's path bit for bit; the noise itself agrees
+within a few ulp (:func:`~repro_torch.core.prng.erf_inv`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
+
 import numpy as np
+import torch
+
+from repro_torch.core import prng
+from repro_torch.kernels.backend import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,3 +123,102 @@ def wear_scale(cycle: float, tau: float) -> float:
 
 
 DEFAULT_PARAMS = MemristorParams()
+
+
+def _f32(v, device) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+def ou_scan(eps: torch.Tensor, mu, x0, theta, s_w) -> torch.Tensor:
+    """The AR(1) recurrence ``x' = x + theta (mu - x) + s_w e`` over ``eps``'s
+    leading (time) axis, every other axis at once; returns the path, the
+    shape of ``eps``.
+
+    The reference's compiled scan body contracts both multiply-adds into
+    fused multiply-adds: ``x' = fma(s_w, e, fma(theta, mu - x, x))``.  Each
+    FMA here is taken in float64 (the float32 product is exact there) and
+    rounded once to float32, so the same noise gives the reference's path
+    bit for bit (a double rounding could differ in the last bit; the tests
+    have not seen one).  ``s_w * e`` is taken for all steps at once.
+    """
+    dev = eps.device
+    mu = _f32(mu, dev).to(torch.float64)
+    theta = _f32(theta, dev).to(torch.float64)
+    x = _f32(x0, dev).expand(eps.shape[1:]).clone()
+    kick = _f32(s_w, dev).to(torch.float64) * eps.to(torch.float64)
+    path = torch.empty_like(eps)
+    pull = torch.empty(x.shape, dtype=torch.float64, device=dev)
+    for t in range(eps.shape[0]):
+        torch.sub(mu, x, out=pull)
+        # round mu - x to float32, then fma(theta, ., x) and fma(s_w, e, .)
+        pull = pull.float().double().mul_(theta).add_(x)
+        pull = pull.float().double().add_(kick[t])
+        x = path[t]
+        x.copy_(pull)
+    return path
+
+
+def sample_ou_path(key, n: int, params: MemristorParams = DEFAULT_PARAMS, mu=None, x0=None,
+                   *, device="cuda") -> torch.Tensor:
+    """Sample an OU trajectory of per-cycle V_th values, shape ``(n,) + shape(mu)``.
+
+    ``mu`` may be a scalar or a tensor of per-device means (device-to-device
+    spread); ``x0`` defaults to ``mu``.  Runs on ``device``.
+    """
+    dev = resolve_device(device)
+    mu_ = _f32(params.vth_mu if mu is None else mu, dev)
+    x0_ = mu_ if x0 is None else _f32(x0, dev)
+    eps = prng.normal(key, (n,) + tuple(mu_.shape), device=dev)
+    return ou_scan(eps, mu_, x0_, np.float32(params.ou_theta), np.float32(params.ou_sigma_w))
+
+
+def sample_devices(key, n_devices: int, params: MemristorParams = DEFAULT_PARAMS, *,
+                   device="cuda") -> torch.Tensor:
+    """Per-device mean V_th values (device-to-device variation, Fig 1d)."""
+    dev = resolve_device(device)
+    d2d_sigma = params.vth_mu * params.d2d_cv
+    eps = prng.normal(key, (n_devices,), device=dev)
+    return _f32(params.vth_mu, dev) + _f32(d2d_sigma, dev) * eps
+
+
+def fit_ou(path) -> Tuple[float, float, float]:
+    """Least-squares AR(1) fit of an OU process: returns (theta, mu, sigma_w).
+
+    Mirrors the paper's Fig S4 stability analysis: x_{t+1} - x_t regressed
+    on x_t, in float64 on the host (a fit of one trajectory).
+    """
+    if isinstance(path, torch.Tensor):
+        path = path.detach().cpu().numpy()
+    x = np.asarray(path, dtype=np.float64)
+    xt, xn = x[:-1], x[1:]
+    # xn = a + b * xt + resid ; theta = 1 - b, mu = a / theta.
+    b, a = np.polyfit(xt, xn, 1)
+    theta = 1.0 - b
+    mu = a / theta if abs(theta) > 1e-9 else float(np.mean(x))
+    resid = xn - (a + b * xt)
+    sigma_w = float(np.std(resid))
+    return float(theta), float(mu), sigma_w
+
+
+def switching_event(key, v_in, n_cycles: int, params: MemristorParams = DEFAULT_PARAMS,
+                    mu=None, *, device="cuda") -> torch.Tensor:
+    """Simulate ``n_cycles`` pulsed cycles: did the device switch on each pulse?
+
+    A pulse of amplitude ``v_in`` switches the memristor iff ``v_in > V_th,t``,
+    ``V_th,t`` the OU trajectory; the volatile self-reset needs no reset
+    circuitry.  Returns uint8 ``(n_cycles,) + broadcast shape``.
+    """
+    vth = sample_ou_path(key, n_cycles, params, mu=mu, device=device)
+    return (_f32(v_in, vth.device) > vth).to(torch.uint8)
+
+
+def endurance_trace(key, cycles: int, params: MemristorParams = DEFAULT_PARAMS, *,
+                    device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """HRS/LRS resistance readings over an endurance test (Fig 1e): log-normal
+    jitter around stable means, separated by the switching ratio."""
+    dev = resolve_device(device)
+    k1, k2 = prng.split(key)
+    lrs = _f32(1e4, dev) * torch.exp(_f32(0.05, dev) * prng.normal(k1, (cycles,), device=dev))
+    hrs = lrs.mean() * _f32(params.switching_ratio, dev) * torch.exp(
+        _f32(0.08, dev) * prng.normal(k2, (cycles,), device=dev))
+    return hrs, lrs

@@ -21,7 +21,13 @@ instead: :func:`counter_hash_words` runs both lowbias32 rounds over the
 row-major counter of every entropy word, and each word gives 4 comparator
 bytes.  :func:`packed_from_bytes` is the comparator and packer of those words,
 and :func:`encode_packed` / :func:`encode_packed_categorical` the root
-encoders of the unfused lowering built on them.
+encoders of the unfused lowering built on them.  :func:`encode_packed_correlated`
+compares one entropy source against several thresholds (the correlated SNE),
+and :func:`fair_bits` takes the words themselves as p = 0.5 streams.
+
+``impl='threefry'`` draws the words from the Threefry cipher instead
+(:func:`~repro_torch.core.prng.device_bits`, ``jax.random.bits`` bit for bit)
+on the same device.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.bitops import MASK32, as_i32, n_words, pad_mask, value_planes
 
 # Stream bits contributed by one 32-bit entropy word (one per byte).
@@ -193,25 +200,54 @@ def _mask_tail(words: torch.Tensor, n_bits: int) -> torch.Tensor:
     return words
 
 
-def random_words(key, shape: tuple, n_bits: int, *, device=None) -> torch.Tensor:
-    """``shape + (n_rand,)`` counter-hash entropy words for ``n_bits``-bit
-    streams (int64): the reference's ``impl='fast'`` generator."""
-    return counter_hash_words(key, tuple(shape), n_rand_words(n_bits), device=device)
+def _draw_words(key, shape: tuple, impl: str, device) -> torch.Tensor:
+    """``shape`` entropy words (int64) from the generator ``impl`` names."""
+    if impl == "threefry":
+        return prng.device_bits(key, shape, device=device or "cpu")
+    if impl != "fast":
+        raise ValueError(f"impl must be 'fast' or 'threefry', got {impl!r}")
+    return counter_hash_words(key, shape[:-1], shape[-1], device=device)
 
 
-def encode_packed(key, p, n_bits: int) -> torch.Tensor:
+def random_words(key, shape: tuple, n_bits: int, impl: str = "fast", *,
+                 device=None) -> torch.Tensor:
+    """``shape + (n_rand,)`` entropy words for ``n_bits``-bit streams (int64).
+
+    ``impl='fast'`` is the counter-hash generator, ``impl='threefry'`` the
+    Threefry cipher of ``jax.random.bits``; both on ``device``.
+    """
+    return _draw_words(key, tuple(shape) + (n_rand_words(n_bits),), impl, device)
+
+
+def encode_packed(key, p, n_bits: int, impl: str = "fast") -> torch.Tensor:
     """Independent packed Bernoulli streams: ``p.shape + (n_words,)`` int32.
 
     Runs on ``p``'s device.  Entry ``i`` of the flattened ``p`` draws the
     counters ``i * n_rand ..``, as the ``sne_encode`` kernel does.
     """
     p = torch.as_tensor(p, dtype=torch.float32)
-    rand = random_words(key, tuple(p.shape), n_bits, device=p.device)
+    rand = random_words(key, tuple(p.shape), n_bits, impl, device=p.device)
     return _mask_tail(packed_from_bytes(rand, threshold_from_p(p)), n_bits)
 
 
-def encode_packed_categorical(key, cdf: tuple, n_bits: int, batch: int | None = None, *,
-                              device=None) -> torch.Tensor:
+def encode_packed_correlated(key, p, n_bits: int, negate=None, impl: str = "fast") -> torch.Tensor:
+    """Packed streams over the trailing axis of ``p`` sharing one entropy source.
+
+    Every stream of the group compares the *same* bytes against its own
+    threshold (one SNE, many comparator references): maximal positive
+    correlation.  ``negate`` marks streams read through the complemented
+    comparator (``255 - byte``): maximal negative correlation with the
+    others.  Runs on ``p``'s device.
+    """
+    p = torch.as_tensor(p, dtype=torch.float32)
+    rand = random_words(key, tuple(p.shape[:-1]) + (1,), n_bits, impl, device=p.device)
+    flip = None if negate is None else torch.as_tensor(negate, dtype=torch.bool,
+                                                        device=p.device)
+    return _mask_tail(packed_from_bytes(rand, threshold_from_p(p), flip), n_bits)
+
+
+def encode_packed_categorical(key, cdf: tuple, n_bits: int, batch: int | None = None,
+                              impl: str = "fast", *, device=None) -> torch.Tensor:
     """Categorical root sampling: one entropy byte -> ``value_bits(k)`` planes.
 
     cdf: ``(k-1,)`` non-increasing cumulative thresholds in [0, 256]
@@ -221,6 +257,18 @@ def encode_packed_categorical(key, cdf: tuple, n_bits: int, batch: int | None = 
     ``(value_bits(k), batch, n_words)`` when ``batch`` is given.
     """
     lead = () if batch is None else (batch,)
-    rand = random_words(key, lead, n_bits, device=device)
+    rand = random_words(key, lead, n_bits, impl, device=device)
     levels = [packed_from_bytes(rand, int(t)) for t in cdf]
     return torch.stack([_mask_tail(pl, n_bits) for pl in value_planes(levels)])
+
+
+def fair_bits(key, shape: tuple, n_bits: int, impl: str = "fast", *,
+              device=None) -> torch.Tensor:
+    """p = 0.5 packed streams straight from the generator: ``shape + (n_words,)``
+    int32, one entropy bit per stream bit, pad bits zeroed.
+
+    The MUX tree's selects are fair coins, so they skip the byte compare.
+    ``impl`` chooses the generator as in :func:`random_words`.
+    """
+    words = _draw_words(key, tuple(shape) + (n_words(n_bits),), impl, device)
+    return _mask_tail(as_i32(words), n_bits)

@@ -6,10 +6,8 @@ describes: RGB misses targets at night or in harsh lighting, thermal misses
 targets without heat emission.  Ground truth is known, so the fusion's gain
 in detection rate and confidence is measurable.
 
-:func:`make_scene` draws from an explicit ``torch.Generator``; it cannot
-reproduce the reference's ``jax.random`` draws, only their distribution.
-:func:`make_scene_keyed` takes a key as the reference's ``make_scene`` does
-and gives its scene bit for bit.
+:func:`make_scene` takes a key as the reference's does and gives its scene
+bit for bit.
 """
 
 from __future__ import annotations
@@ -37,48 +35,6 @@ class SceneConfig:
                                     # rejection -- the regime fusion can rescue
 
 
-def make_scene(gen: torch.Generator, cfg: SceneConfig, *, device="cuda"):
-    """Returns (gt (H, W) {0,1}, p_rgb (H, W), p_thermal (H, W), night flag).
-
-    Draws on the generator's device, then moves the maps to ``device``.
-    Failure modes are independent per obstacle and per modality (the paper's
-    Fig 4 setting): a missed target yields a *weak* confidence around 0.5
-    (insufficient evidence), so conditionally-independent fusion (eq 5) can
-    recover targets that either single modality loses.
-    """
-    dev = resolve_device(device)
-    h, w, n = cfg.height, cfg.width, cfg.n_obstacles
-    draw = dict(generator=gen, device=gen.device)
-    cy = torch.randint(4, h - 4, (n,), **draw)
-    cx = torch.randint(4, w - 4, (n,), **draw)
-    rad = torch.randint(2, 6, (n,), **draw)
-    night = torch.rand((), **draw) < cfg.night_fraction
-    rgb_vis = torch.where(night, cfg.rgb_vis_night, cfg.rgb_vis_day)
-    rgb_clear = torch.rand((n,), **draw) < rgb_vis
-    th_clear = torch.rand((n,), **draw) < cfg.thermal_vis
-    noise = 0.06 * torch.rand((2, h, w), **draw)
-    cy, cx, rad, night, rgb_clear, th_clear, noise = (
-        t.to(dev) for t in (cy, cx, rad, night, rgb_clear, th_clear, noise))
-
-    yy = torch.arange(h, device=dev)[:, None]
-    xx = torch.arange(w, device=dev)[None, :]
-    dist2 = (yy[None] - cy[:, None, None]) ** 2 + (xx[None] - cx[:, None, None]) ** 2
-    inside = dist2 <= rad[:, None, None] ** 2                       # (N, H, W)
-    gt = inside.any(0).to(torch.float32)
-
-    rgb_strength = torch.where(rgb_clear, cfg.strong, cfg.weak)[:, None, None]
-    th_strength = torch.where(th_clear, cfg.strong, cfg.weak)[:, None, None]
-    rgb_det = (inside * rgb_strength).amax(0)
-    th_det = (inside * th_strength).amax(0)
-
-    p_rgb = torch.clamp(rgb_det * (1 - noise[0]) + noise[0] * 0.5, 0.02, 0.98)
-    p_th = torch.clamp(th_det * (1 - noise[1]) + noise[1] * 0.5, 0.02, 0.98)
-    # background base rate
-    p_rgb = torch.where(gt > 0, p_rgb, 0.05 + noise[0])
-    p_th = torch.where(gt > 0, p_th, 0.05 + noise[1])
-    return gt, p_rgb, p_th, night
-
-
 def detection_metrics(gt: torch.Tensor, p: torch.Tensor, thresh: float = 0.6):
     """(detection rate on gt pixels, false-positive rate, mean confidence on gt)."""
     gt = torch.as_tensor(gt, dtype=torch.float32)
@@ -91,14 +47,21 @@ def detection_metrics(gt: torch.Tensor, p: torch.Tensor, thresh: float = 0.6):
     return tp, fp, conf
 
 
-def make_scene_keyed(key, cfg: SceneConfig, *, device="cuda"):
-    """:func:`make_scene` drawn from a ``(2,)`` uint32 key, as the reference's.
+def make_scene(key, cfg: SceneConfig, *, device="cuda"):
+    """Returns (gt (H, W) {0,1}, p_rgb (H, W), p_thermal (H, W), night flag).
 
-    The draws are the reference's, value for value: the key splits into 7,
-    obstacle centres and radii come from :func:`~repro_torch.core.prng.randint`
-    and the night flag, the per-obstacle visibility and the pixel noise from
-    :func:`~repro_torch.core.prng.uniform`, on the host.  The maps are then
-    computed on ``device`` in float32, one rounding per operation as the
+    Failure modes are independent per obstacle and per modality (the paper's
+    Fig 4 setting): a missed target yields a *weak* confidence around 0.5
+    (insufficient evidence), so conditionally-independent fusion (eq 5) can
+    recover targets that either single modality loses.
+
+    The draws are the reference's, value for value, from the ``(2,)``
+    uint32 key: it splits into 7; obstacle centres and radii come from
+    :func:`~repro_torch.core.prng.randint` and the night flag and the
+    per-obstacle visibility from :func:`~repro_torch.core.prng.uniform`, on
+    the host (a handful of values), the pixel noise from
+    :func:`~repro_torch.core.prng.device_uniform` on ``device``.  The maps
+    are computed on ``device`` in float32, one rounding per operation as the
     reference's, so the same key gives the reference's scene bit for bit on
     the card and on the CPU.
     """
@@ -113,10 +76,10 @@ def make_scene_keyed(key, cfg: SceneConfig, *, device="cuda"):
     rgb_vis = f32(cfg.rgb_vis_night if night else cfg.rgb_vis_day)
     rgb_clear = prng.uniform(k4, (n,)) < rgb_vis
     th_clear = prng.uniform(k7, (n,)) < f32(cfg.thermal_vis)
-    noise = f32(0.06) * prng.uniform(k6, (2, h, w))
-    cy, cx, rad, rgb_clear, th_clear, noise = (
+    noise = torch.tensor(f32(0.06), device=dev) * prng.device_uniform(k6, (2, h, w), device=dev)
+    cy, cx, rad, rgb_clear, th_clear = (
         torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        for a in (cy, cx, rad, rgb_clear, th_clear, noise))
+        for a in (cy, cx, rad, rgb_clear, th_clear))
 
     yy = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
     xx = torch.arange(w, dtype=torch.int32, device=dev)[None, :]

@@ -108,7 +108,7 @@ def test_oracle_validates_and_defaults_to_the_card():
 def test_sampler_marginals_match_the_joint(name):
     spec = T.by_name(name)
     n = 1 << 16
-    draws = TA._sample_joint(spec, torch.Generator().manual_seed(7), n).numpy()
+    draws = TA._sample_joint(spec, prng.PRNGKey(7), n, "cpu").numpy()
     states, joint = TA.joint_table(spec, device="cpu")
     states, joint = states.numpy(), joint.numpy().astype(np.float64)
     for j, node in enumerate(spec.nodes):
@@ -117,9 +117,12 @@ def test_sampler_marginals_match_the_joint(name):
             got = float((draws[:, j] == v).mean())
             sigma = np.sqrt(max(p * (1 - p), 1e-12) / n)
             assert abs(got - p) <= 4.5 * sigma + 1e-12, (name, node.name, v, got, p)
-    ev = TA.sample_evidence(spec, torch.Generator().manual_seed(7), n)
+    ev = TA.sample_evidence(spec, prng.PRNGKey(7), n, device="cpu")
     assert ev.dtype == torch.int32 and tuple(ev.shape) == (n, len(spec.evidence))
     np.testing.assert_array_equal(ev.numpy(), draws[:, [spec.index(e) for e in spec.evidence]])
+    # the reference's frames from the same key, value for value
+    want = RA.sample_evidence(R.by_name(name), jax.random.PRNGKey(7), n)
+    np.testing.assert_array_equal(ev.numpy(), np.asarray(want))
 
 
 # --- the reference's fill path at hypothesis seed 7060 -------------------------------

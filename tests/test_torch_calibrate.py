@@ -10,7 +10,7 @@
   networks refuse.
 * ``prng.random_bits`` / ``uniform`` / ``randint`` -- ``jax.random``'s values
   bit for bit under the key layout this jax process uses (``jax.config``).
-* ``make_scene_keyed``, ``fit_scene_config``, ``calibration_report`` -- the
+* ``make_scene``, ``fit_scene_config``, ``calibration_report`` -- the
   reference's scenes bit for bit, and its fitted configs and reports
   exactly (float fields included: the same float32 maps summed by the same
   numpy code).
@@ -244,7 +244,7 @@ def test_make_scene_keyed_equals_reference(ci):
     nights = set()
     for k in jax.random.split(jax.random.PRNGKey(ci), 12):
         want = rdet.make_scene(k, rcfg)
-        got = tdet.make_scene_keyed(_kd(k), tcfg, device="cpu")
+        got = tdet.make_scene(_kd(k), tcfg, device="cpu")
         for g, w in zip(got[:3], want[:3]):
             w = np.asarray(w)
             assert g.dtype == torch.float32 and tuple(g.shape) == w.shape

@@ -43,7 +43,7 @@ from repro.kernels.sne_encode.ref import sne_encode_ref as jsne_encode_ref
 from repro.models import bayes_head as jhead
 from repro_torch.configs import paper_bayes as tcfg
 from repro_torch.core import fusion as tfusion
-from repro_torch.core import rng
+from repro_torch.core import prng, rng
 from repro_torch.data import detection as tdet
 from repro_torch.kernels import bayes_decide, bayes_decide_packed, fusion_map
 from repro_torch.kernels import pand_popcount, sne_encode
@@ -317,7 +317,6 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a card is present: the default device runs the kernels")
     key = np.array([1, 2], np.uint32)
     p = np.full((2, 3, 2), 0.5, np.float32)
-    gen = torch.Generator().manual_seed(0)
     calls = [
         lambda: sne_encode(key, p),
         lambda: pand_popcount(np.zeros((2, 3, 1), np.int32)),
@@ -326,7 +325,7 @@ def test_entry_points_default_to_the_card():
         lambda: fusion_map(p),
         lambda: thead.fuse_posteriors(np.zeros((2, 1, 8), np.float32)),
         lambda: thead.fuse_posteriors_stochastic(key, np.zeros((2, 1, 8), np.float32)),
-        lambda: tdet.make_scene(gen, tdet.SceneConfig(height=16, width=16)),
+        lambda: tdet.make_scene(prng.PRNGKey(0), tdet.SceneConfig(height=16, width=16)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
@@ -407,8 +406,7 @@ def test_detection_metrics_on_a_reference_scene():
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_make_scene_invariants(night_fraction, seed):
     cfg = tdet.SceneConfig(height=40, width=56, night_fraction=night_fraction)
-    gen = torch.Generator().manual_seed(seed)
-    gt, p_rgb, p_th, night = tdet.make_scene(gen, cfg, device="cpu")
+    gt, p_rgb, p_th, night = tdet.make_scene(prng.PRNGKey(seed), cfg, device="cpu")
     assert tuple(gt.shape) == tuple(p_rgb.shape) == tuple(p_th.shape) == (40, 56)
     assert bool(night) == (night_fraction == 1.0)
     assert set(torch.unique(gt).tolist()) <= {0.0, 1.0}
@@ -419,9 +417,10 @@ def test_make_scene_invariants(night_fraction, seed):
         on, off = p[gt > 0], p[gt == 0]
         assert float(on.min()) >= 0.02 and float(on.max()) <= 0.98
         assert float(off.min()) >= 0.05 and float(off.max()) <= 0.11 + 1e-6
-    again = tdet.make_scene(torch.Generator().manual_seed(seed), cfg, device="cpu")
-    for a, b in zip((gt, p_rgb, p_th, night), again):
+    again = tdet.make_scene(prng.PRNGKey(seed), cfg, device="cpu")
+    for a, b in zip((gt, p_rgb, p_th), again):
         assert torch.equal(a, b)
+    assert again[3] is night
 
 
 def test_paper_bayes_config_is_the_reference_config():
