@@ -86,7 +86,27 @@ Phases (any failure makes the script exit non-zero without the result line):
               and obstacle_fusion at their scripts' sizes.  Per flow: seconds
               on the card and launches per kernel; then the throughput model
               beside the batched operator's measured rate.
-10. operators -- the paper's fusion operators.  Each of ``sne_encode``,
+10. lm_serve -- the LM serving path (configs, the attention-only decoder, the
+              ``ServeEngine`` with the Bayes gate).  phi3-mini-3.8b at its
+              published config, every layer, random weights from
+              ``PRNGKey(0)`` made on the card: init seconds and peak memory;
+              decode after prefill against the teacher-forced forward
+              (``tests/models/test_smoke_archs.py``'s tolerances); 6 requests of
+              8-12 prompt tokens, 16 new tokens each, on 4 slots (two admitted
+              mid-flight) with the stochastic gate at 256 bits, counts reset just
+              before and read just after: prefill and decode ms (CUDA events),
+              tokens/s, ``bayes_decide`` launches (one per step) and the share of
+              emissions that cleared the gate; every step's gate input through
+              ``bayes_decide`` bit-equal to its plain version, and its device
+              time at that shape beside its bound.  Then card against CPU: phi3
+              at full width cut to 2 layers (weights copied from the card; the
+              CPU's greedy tokens forced on both; logits within the stated
+              tolerances, the gate on the CPU's logits bit-equal on both), the
+              five archs of the slice at their smoke configs (forward, prefill,
+              decode, gate), ``repro_torch.launch.serve`` for phi3 with the
+              stochastic gate, and ``examples.serve_lm.run`` card against CPU
+              (tokens held while the fused top-2 gap clears 1e-2).
+11. operators -- the paper's fusion operators.  Each of ``sne_encode``,
               ``pand_popcount``, ``bayes_decide`` and ``fusion_map`` against
               its plain torch version on the card (bit for bit; fusion_map
               within atol 2e-6, rtol 1e-5) at M 1..3, K 1, 2, 8, 16 and 33,
@@ -103,7 +123,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               decision (4096 decisions, M=K=2, 128 bits: fused, composed,
               ``bayes_decide_packed``); and the ``obstacle_fusion`` example
               flow at 64x64 (``examples.obstacle_fusion.run``).
-11. operator_timing -- device time per launch (``torch.profiler``, the L2
+12. operator_timing -- device time per launch (``torch.profiler``, the L2
               flushed before each launch) and per back-to-back call (CUDA
               events) of the four kernels at the full batch and at a
               65,536-pixel slice of it, beside their plain
@@ -116,7 +136,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               bound counts the shared body's least integer work per entropy
               word, logic on the 64 ALU lanes of an SM and multiplies and
               adds free to use all 128, as ``net_sweep``'s.
-12. unfused_kernels -- the ``node_mux`` kernels against their plain versions
+13. unfused_kernels -- the ``node_mux`` kernels against their plain versions
               on the card, bit for bit: gather and rows at 0 to 6 parents
               (per-row tables and shared rows holding thresholds 0, 128, 256
               and the half steps) and at 7 and 8 (the gather on the
@@ -125,7 +145,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               (per-row and shared tables; 6 binary parents at k = 2) and
               its wide path at 9 planes and at 17 parents, k-ary roots, and
               counter origins that wrap 2**32.
-13. unfused_path -- the unfused lowering through its entry points at
+14. unfused_path -- the unfused lowering through its entry points at
               n_bits=4096, B=1024, counts reset just before and read just
               after: 7 scenarios x {``fused=False``, ``share_entropy=True``},
               ``mux_mode='rows'`` on the 4 binary scenarios and
@@ -136,12 +156,12 @@ Phases (any failure makes the script exit non-zero without the result line):
               Then the unfused, shared-entropy and fused posteriors against the
               enumeration oracle: per distinct evidence vector, the posterior
               pooled over its frames within 4.5 sqrt(p (1-p) / accepted).
-14. wide_path -- the wide network through ``compile_network`` fused,
+15. wide_path -- the wide network through ``compile_network`` fused,
               ``fused=False``, ``share_entropy=True`` and ``mux_mode='rows'`` at
               n_bits=4096, B=1024, each ``decide`` bit-equal to
               ``device="cpu"``; counts reset just before and read just after,
               and each wide kernel must have launched.
-15. unfused_timing -- device time per launch and per back-to-back call of the
+16. unfused_timing -- device time per launch and per back-to-back call of the
               node_mux kernels at B=1024 and B=65,536 (n_bits=4096; the wide
               paths at B=256) beside their plain versions and bounds; launches
               of each kernel per unfused ``run`` of each scenario; wall time per
@@ -162,6 +182,8 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import copy
+import dataclasses
 import json
 import pathlib
 import re
@@ -189,12 +211,14 @@ from repro_torch.bayesnet import (  # noqa: E402
     sweep_plan,
 )
 from repro_torch.bayesnet.reliability import TERMINAL_STATUSES  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.configs.paper_bayes import full_config  # noqa: E402
 from repro_torch.core import bitops, prng, rng  # noqa: E402
 from repro_torch.core import correlation, fusion, graph, inference, latency, logic, sne  # noqa: E402
 from repro_torch.core import device as memristor  # noqa: E402
 from repro_torch.data import detection  # noqa: E402
 from repro_torch.examples import obstacle_fusion, quickstart, route_planning, scene_graph  # noqa: E402
+from repro_torch.examples import serve_lm  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     backend,
     bayes_decide,
@@ -223,7 +247,10 @@ from repro_torch.kernels.sne_encode import kernel as sne_kernel  # noqa: E402
 from repro_torch.kernels.sne_encode.ref import sne_encode_ref  # noqa: E402
 from repro_torch.distributed.fault import LaunchFaultInjector  # noqa: E402
 from repro_torch.obs import PAPER_BUDGET_MS  # noqa: E402
-from repro_torch.serve import BayesRouter, RouterPolicy, tenant_salt  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.models import api, bayes_head, transformer  # noqa: E402
+from repro_torch.serve import BayesRouter, EngineConfig, Request, RouterPolicy, ServeEngine, tenant_salt  # noqa: E402,E501
+from repro_torch.serve import engine as engine_mod  # noqa: E402
 from torch_wide_net import wide_spec  # noqa: E402
 
 NAMES = sorted(SCENARIOS)
@@ -992,13 +1019,18 @@ def _hold(flow, card, cpu, rules):
         diff = (a.to(torch.float64) - b.to(torch.float64)).abs()
         errs[name] = float(diff.max()) if diff.numel() else 0.0
         if rule == _EXACT:
-            ok = torch.equal(a, b)
+            bad = a != b
         else:
             atol, rtol = rule
-            ok = bool(torch.all(diff <= atol + rtol * b.to(torch.float64).abs()))
-        if not ok:
-            raise AssertionError(f"{flow}.{name}: the card differs from the CPU beyond "
-                                 f"{rule} (max abs diff {errs[name]})")
+            bad = ~(diff <= atol + rtol * b.to(torch.float64).abs())
+        if bool(bad.any()):
+            i = int(torch.nonzero(bad.reshape(-1))[0])
+            at = tuple(int(j) for j in np.unravel_index(i, tuple(a.shape)))
+            raise AssertionError(
+                f"{flow}.{name}: the card differs from the CPU beyond {rule} at "
+                f"{int(bad.sum())} of {bad.numel()} elements (max abs diff {errs[name]}); "
+                f"first at index {at}: card {a.reshape(-1)[i].item()!r}, "
+                f"CPU {b.reshape(-1)[i].item()!r}")
     return errs
 
 
@@ -1018,6 +1050,125 @@ def _hold_via_device(card, cpu):
     return {"bits_inside_margin": inside, "bits_differing_outside": flips,
             "popcount_max_diff": count_diff}
 
+
+
+# the LM serving path (lm_serve): the archs of the attention-only decoder stack
+LM_ARCH = "phi3-mini-3.8b"            # served at its published config, every layer
+LM_ARCHS = ("qwen2-72b", "starcoder2-15b", "minitron-4b", "phi3-mini-3.8b", "internvl2-26b")
+LM_ENGINE = EngineConfig(max_batch=4, t_cache=128, bayes_gate=True, stochastic_gate=True,
+                         gate_n_bits=256)
+LM_REQUESTS, LM_NEW_TOKENS = 6, 16    # 6 requests on 4 slots: two wait and join mid-flight
+LM_CUT_LAYERS = 2                     # card against CPU at full width: depth cut to 2 layers
+LM_PATCHES = 4                        # internvl2's stub patch embeddings
+# tests/models/test_smoke_archs.py's own tolerances: decode after prefill against
+# the teacher-forced forward (prefill 2e-2, decode 1e-1), used here for card against CPU
+LM_PREFILL_TOL, LM_DECODE_TOL = (2e-2, 2e-2), (1e-1, 1e-1)
+# card against CPU at full width: cuBLAS and the CPU's GEMM sum the 3072-8192
+# products of every bf16 matmul in other orders, so the hidden state differs by
+# bf16 ulps, which sum to a few 1e-2 in a logit of scale 1 (phi3 at 2 layers on
+# an H100: up to 0.035, beyond the prefill bound's 2e-2 + 2e-2 |x|); held
+# within the decode bound's atol
+LM_WIDE_TOL = (1e-1, 2e-2)
+LM_MARGIN = 1e-2                      # a token is held only where the fused top-2 gap clears this
+
+
+def _close(what, got, want, tol):
+    """Float logits within (atol, rtol) of the other device's; returns the max abs diff."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    diff = (got - want).abs()
+    bad = diff > tol[0] + tol[1] * want.abs()
+    if bool(bad.any()):
+        i = int(torch.nonzero(bad.reshape(-1))[0])
+        raise AssertionError(f"{what}: {int(bad.sum())} of {bad.numel()} logits beyond {tol}; "
+                             f"first at flat index {i}: {got.reshape(-1)[i].item()!r} against "
+                             f"{want.reshape(-1)[i].item()!r}")
+    return float(diff.max())
+
+
+def _lm_batch(cfg, dev, seq=12, batch=2, seed=3):
+    """Seeded tokens (and patch embeddings for the vlm stub) on ``dev``."""
+    r = np.random.default_rng(seed)
+    toks = torch.from_numpy(r.integers(0, cfg.vocab_size, (batch, seq))).to(dev)
+    extra = None
+    if cfg.frontend == "patch":
+        extra = torch.from_numpy(r.standard_normal((batch, LM_PATCHES, cfg.d_model))
+                                 .astype(np.float32)).to(dev)
+    return toks, extra
+
+
+def _gate_same(what, engine_cfg, keys, logits):
+    """The engine's gate on the same logits and keys on the CPU and on the card:
+    tokens, confidences, accept flags and the bayes_decide counts bit-equal.
+    Returns the largest difference of the candidate posteriors, in float32 ulp."""
+    gates = {}
+    for dev in ("cpu", "cuda"):
+        outs = []
+        for key, lg in zip(keys, logits):
+            lg = lg.to(dev)
+            tok, conf, ok = engine_mod.emission_gate(engine_cfg, key, lg, device=dev)
+            temp = torch.full((), engine_cfg.ensemble_temp, device=dev)
+            _, p = bayes_head._candidates(torch.stack([lg, lg / temp]), 8, dev)
+            _, counts = bayes_decide(key, p, engine_cfg.gate_n_bits, device=dev)
+            outs.append([t.cpu() for t in (tok, conf, ok, counts, p)])
+        gates[dev] = outs
+    p_ulps = 0
+    for step, (a, b) in enumerate(zip(gates["cuda"], gates["cpu"])):
+        for name, x, y in zip(("token", "confidence", "accept", "counts"), a, b):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what} step {step}: the gate's {name} differs between "
+                                     f"the card and the CPU: {x.tolist()} against {y.tolist()}")
+        p_ulps = max(p_ulps, int((a[4].view(torch.int32) - b[4].view(torch.int32)).abs().max()))
+    return p_ulps
+
+
+def _fused_gap(logits, temp):
+    """Per row, the gap between the top two fused candidate posteriors (analytic)."""
+    src = torch.stack([logits, logits / torch.full((), temp, device=logits.device)])
+    _, _, fused = bayes_head.fuse_posteriors(src, top_k=8, device=logits.device)
+    top2 = torch.topk(fused, 2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).cpu()
+
+
+class _GateRecorder:
+    """Records every emission-gate call of every ServeEngine while active:
+    (key, logits, token, conf, ok)."""
+
+    def __enter__(self):
+        self.calls, self._gate = [], engine_mod.emission_gate
+        rec = self
+
+        def gate(ecfg, key, last_logits, *, device="cuda"):
+            out = rec._gate(ecfg, key, last_logits, device=device)
+            rec.calls.append((np.array(key), last_logits.detach().clone(), *out))
+            return out
+        engine_mod.emission_gate = gate
+        return self
+
+    def __exit__(self, *exc):
+        engine_mod.emission_gate = self._gate
+
+
+def _hold_lm_runs(what, card_calls, cpu_calls, temp):
+    """Two runs of one serve, card and CPU, step by step: logits within
+    LM_DECODE_TOL, tokens equal, until the first step whose tokens differ at a
+    near tie (fused top-2 gap under LM_MARGIN on the CPU's logits), where the two
+    contexts part and the comparison ends.  Returns (steps held, steps in all)."""
+    if len(card_calls) != len(cpu_calls):
+        raise AssertionError(f"{what}: {len(card_calls)} gate calls on the card, "
+                             f"{len(cpu_calls)} on the CPU")
+    for step, (a, b) in enumerate(zip(card_calls, cpu_calls)):
+        _close(f"{what} step {step} logits", a[1], b[1], LM_DECODE_TOL)
+        differ = a[2].cpu() != b[2].cpu()
+        if bool(differ.any()):
+            gap = _fused_gap(b[1], temp)
+            if bool((gap[differ] >= LM_MARGIN).any()):
+                raise AssertionError(f"{what} step {step}: tokens {a[2].tolist()} on the card "
+                                     f"against {b[2].tolist()} where the fused gap "
+                                     f"{gap.tolist()} clears {LM_MARGIN}")
+            return step, len(cpu_calls)
+    return len(cpu_calls), len(cpu_calls)
 
 
 class Smoke:
@@ -1654,6 +1805,224 @@ class Smoke:
                  f"bits, plain torch on the card) {ms:.3f} ms per call = {measured:,.0f} "
                  f"decisions/s; latency.throughput_model at {self.int32_ops_per_s / 1e12:.1f} T "
                  f"int32 ops/s predicts {model:,.0f} ({model / measured:.0f}x the measured rate)")
+
+    # ------------------------------------------------------------ LM serving
+    def lm_serve(self):
+        """The LM serving path: phi3-mini-3.8b at its published config served
+        through ServeEngine with the stochastic gate; card against CPU at full
+        width cut to LM_CUT_LAYERS layers and for every arch of the slice at its
+        smoke config; the launcher and the serve_lm example."""
+        report = self.report["lm_serve"] = {}
+        self._lm_full(report)
+        self._lm_cut(report)
+        self._lm_smoke(report)
+        self._lm_launcher(report)
+
+    def _lm_full(self, report):
+        cfg = get_config(LM_ARCH)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = api.init(cfg, prng.PRNGKey(0), device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
+        n_params = api.param_count(params)
+        param_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+        # decode after prefill of t-1 tokens against the teacher-forced forward at t
+        toks, _ = _lm_batch(cfg, "cuda")
+        with torch.inference_mode():
+            full, _ = transformer.forward(params, cfg, toks)
+            lp, st = api.prefill(params, cfg, {"tokens": toks[:, :-1]}, 16)
+            ld, _ = api.decode(params, cfg, toks[:, -1], st, toks.shape[1] - 1)
+        consistency = {"prefill": _close("prefill vs forward", lp, full[:, -2], LM_PREFILL_TOL),
+                       "decode": _close("decode vs forward", ld, full[:, -1], LM_DECODE_TOL)}
+        del full, lp, ld, st
+        engine = ServeEngine(cfg, params, LM_ENGINE, device="cuda")
+        r = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=r.integers(0, cfg.vocab_size, size=int(r.integers(8, 13)))
+                        .astype(np.int32), max_new_tokens=LM_NEW_TOKENS)
+                for i in range(LM_REQUESTS)]
+        events = {"prefill": [], "decode": []}
+
+        def timed(name, fn):
+            def call(*args):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*args)
+                e1.record()
+                events[name].append((e0, e1))
+                return out
+            return call
+        engine._prefill = timed("prefill", engine._prefill)
+        engine._decode = timed("decode", engine._decode)
+        torch.cuda.synchronize()
+        _reset_launches()
+        with _GateRecorder() as rec:
+            t0 = time.perf_counter()
+            engine.run(prng.PRNGKey(1), reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _launches().items() if v}
+        serve_peak = torch.cuda.max_memory_allocated()
+        ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in events.items()}
+        steps = len(rec.calls)
+        emitted = sum(len(q.out_tokens) for q in reqs)
+        for q in reqs:
+            if not q.done or len(q.out_tokens) != LM_NEW_TOKENS:
+                raise AssertionError(f"request {q.rid}: {len(q.out_tokens)} tokens, done={q.done}")
+        late = sorted(q.rid for q in reqs if q.admit_step > 0)
+        if len(late) != LM_REQUESTS - LM_ENGINE.max_batch:
+            raise AssertionError(f"admitted mid-flight: {late}")
+        if launches.get("bayes_decide", 0) != steps or steps == 0:
+            raise AssertionError(f"{steps} gate calls, launches {launches}")
+        for key, lg, *_ in rec.calls:
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError("non-finite logits reached the gate")
+        # each step's gate input: the kernel against its plain version, bit for bit
+        for step, (key, lg, tok, *_) in enumerate(rec.calls):
+            temp = torch.full((), LM_ENGINE.ensemble_temp, device="cuda")
+            cand, p = bayes_head._candidates(torch.stack([lg, lg / temp]), 8, "cuda")
+            best, counts = bayes_decide(key, p, LM_ENGINE.gate_n_bits, device="cuda")
+            pbest, pcounts = bayes_decide(key, p.cpu(), LM_ENGINE.gate_n_bits, device="cpu")
+            if not (torch.equal(best.cpu(), pbest) and torch.equal(counts.cpu(), pcounts)):
+                raise AssertionError(f"step {step}: bayes_decide differs from its plain version")
+            if not torch.equal(torch.gather(cand, -1, best[:, None].long())[:, 0], tok):
+                raise AssertionError(f"step {step}: the gate's token is not the kernel's decision")
+        key0, lg0 = rec.calls[0][0], rec.calls[0][1]
+        temp = torch.full((), LM_ENGINE.ensemble_temp, device="cuda")
+        _, p0 = bayes_head._candidates(torch.stack([lg0, lg0 / temp]), 8, "cuda")
+        kd = rng.seed_words(key0)
+
+        def gate_launch():
+            return bd_kernel.bayes_decide_cuda(*kd, p0, n_bits=LM_ENGINE.gate_n_bits)
+        bound, by, _, _, hashed = self._op_bound("bayes_decide", p0, LM_ENGINE.gate_n_bits)
+        gate = {"shape": list(p0.shape), "n_bits": LM_ENGINE.gate_n_bits, "launches": steps,
+                "ms": _device_ms(gate_launch, kernel="bayes_decide_kernel"),
+                "call_ms": _event_ms(gate_launch, 50), "bound_ms": bound, "bound_by": by,
+                "hashed_share": hashed}
+        gated = sum(c >= LM_ENGINE.confidence_threshold for q in reqs for c in q.confidences)
+        dec = sorted(ms["decode"])
+        row = report["full"] = {
+            "arch": LM_ARCH, "layers": cfg.num_layers, "params": n_params,
+            "param_bytes": param_bytes, "init_s": init_s, "init_peak_bytes": init_peak,
+            "serve_peak_bytes": serve_peak, "consistency_max_abs_diff": consistency,
+            "prefill_ms": ms["prefill"], "decode_ms_median": dec[len(dec) // 2],
+            "decode_ms_min": dec[0], "decode_ms_max": dec[-1], "decode_steps": len(dec),
+            "serve_s": wall, "tokens": emitted, "tokens_per_s": emitted / wall,
+            "gate_calls": steps, "launches": launches, "gated_share": gated / emitted,
+            "late_admits": late, "gate": gate,
+        }
+        self.lm_gate = gate
+        self.say(f"lm_serve {LM_ARCH} (full config, {cfg.num_layers} layers, {n_params:,} "
+                 f"params, {param_bytes / 1e9:.2f} GB): init {init_s:.1f} s, peak "
+                 f"{init_peak / 1e9:.2f} GB; prefill vs forward max diff "
+                 f"{consistency['prefill']:.4f}, decode {consistency['decode']:.4f}")
+        self.say(f"lm_serve serve: {LM_REQUESTS} requests on {LM_ENGINE.max_batch} slots "
+                 f"(rids {late} admitted mid-flight), {emitted} tokens in {wall:.3f} s = "
+                 f"{emitted / wall:.1f} tokens/s; prefills (CUDA events) "
+                 + ", ".join(f"{v:.2f}" for v in ms["prefill"]) + f" ms; decode per step median "
+                 f"{row['decode_ms_median']:.2f} ms (min {dec[0]:.2f}, max {dec[-1]:.2f}) over "
+                 f"{len(dec)} steps; launches {launches}; {gated}/{emitted} emissions cleared the "
+                 f"gate; serve peak {serve_peak / 1e9:.2f} GB")
+        self.say(f"lm_serve gate: bayes_decide at the engine's shape (M, B, K) = "
+                 f"{tuple(p0.shape)}, {LM_ENGINE.gate_n_bits} bits: {gate['ms']:.5f} ms/launch on "
+                 f"the device, {gate['call_ms']:.4f} ms per back-to-back call, bound "
+                 f"{bound:.6f} ms ({by}); equal to its plain version at all {steps} steps")
+        del engine, params, rec
+        torch.cuda.empty_cache()
+
+    def _lm_cut(self, report):
+        """phi3 at full width, depth cut: weights made on the card, copied to the
+        CPU; greedy on the CPU, the same tokens forced on the card."""
+        cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_CUT_LAYERS)
+        card = api.init(cfg, prng.PRNGKey(0), device="cuda")
+        cpu = copy.deepcopy(card).to("cpu")
+        toks, _ = _lm_batch(cfg, "cpu", seq=8)
+        logits = {"cpu": [], "cuda": []}
+        with torch.inference_mode():
+            lp, st = api.prefill(cpu, cfg, {"tokens": toks}, 32)
+            forced = [torch.argmax(lp, -1)]
+            logits["cpu"].append(lp)
+            for t in range(8):
+                lp, st = api.decode(cpu, cfg, forced[-1], st, toks.shape[1] + t)
+                logits["cpu"].append(lp)
+                forced.append(torch.argmax(lp, -1))
+            lc, sc = api.prefill(card, cfg, {"tokens": toks.cuda()}, 32)
+            logits["cuda"].append(lc)
+            for t in range(8):
+                lc, sc = api.decode(card, cfg, forced[t].cuda(), sc, toks.shape[1] + t)
+                logits["cuda"].append(lc)
+        errs = [_close(f"{LM_ARCH} x{LM_CUT_LAYERS} layers step {i}", a, b, LM_WIDE_TOL)
+                for i, (a, b) in enumerate(zip(logits["cuda"], logits["cpu"]))]
+        agree = sum(int((torch.argmax(a.cpu(), -1) == b).sum())
+                    for a, b in zip(logits["cuda"], forced))
+        keys = [prng.fold_in(prng.PRNGKey(1), i) for i in range(len(logits["cpu"]))]
+        p_ulps = _gate_same(f"{LM_ARCH} x{LM_CUT_LAYERS}", LM_ENGINE, keys, logits["cpu"])
+        report["cut"] = {"layers": LM_CUT_LAYERS, "max_abs_diff": errs,
+                         "greedy_agree": agree, "greedy_of": len(forced) * toks.shape[0],
+                         "gate_p_max_ulps": p_ulps}
+        self.say(f"lm_serve {LM_ARCH} at full width, {LM_CUT_LAYERS} layers, card against CPU: "
+                 f"logits max abs diff per step {[round(e, 4) for e in errs]}; card greedy = CPU "
+                 f"greedy {agree}/{len(forced) * toks.shape[0]}; gate on the CPU's logits equal on "
+                 f"both (candidate posteriors differ by up to {p_ulps} ulp)")
+        del card, cpu
+        torch.cuda.empty_cache()
+
+    def _lm_smoke(self, report):
+        rows = report["smoke"] = {}
+        for arch in LM_ARCHS:
+            cfg = get_smoke_config(arch)
+            card = api.init(cfg, prng.PRNGKey(0), device="cuda")
+            cpu = copy.deepcopy(card).to("cpu")
+            toks, extra = _lm_batch(cfg, "cpu")
+            n_extra = 0 if extra is None else extra.shape[1]
+            out = {}
+            with torch.inference_mode():
+                for dev, model in (("cpu", cpu), ("cuda", card)):
+                    t, e = toks.to(dev), None if extra is None else extra.to(dev)
+                    fw, _ = transformer.forward(model, cfg, t, e)
+                    batch = {"tokens": t[:, :-1]} | ({} if e is None else {"extra_embeds": e})
+                    lp, st = api.prefill(model, cfg, batch, 16 + n_extra)
+                    ld, _ = api.decode(model, cfg, t[:, -1], st, t.shape[1] - 1 + n_extra)
+                    out[dev] = (fw, lp, ld)
+            errs = {name: _close(f"{arch} {name}", a, b, tol) for name, a, b, tol in zip(
+                ("forward", "prefill", "decode"), out["cuda"], out["cpu"],
+                (LM_PREFILL_TOL, LM_PREFILL_TOL, LM_DECODE_TOL))}
+            keys = [prng.fold_in(prng.PRNGKey(2), i) for i in range(2)]
+            errs["gate_p_max_ulps"] = _gate_same(arch, LM_ENGINE, keys, list(out["cpu"][1:]))
+            rows[arch] = errs
+            self.say(f"lm_serve {arch} (smoke) card against CPU: {errs}")
+            del card, cpu
+
+    def _lm_launcher(self, report):
+        argv = ["--arch", LM_ARCH, "--requests", "4", "--new-tokens", "8", "--stochastic-gate"]
+        _reset_launches()
+        t0 = time.perf_counter()
+        reqs = serve_launcher.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in _launches().items() if v}
+        if any(len(q.out_tokens) != 8 for q in reqs) or not launches.get("bayes_decide"):
+            raise AssertionError(f"launch.serve {argv}: tokens "
+                                 f"{[len(q.out_tokens) for q in reqs]}, launches {launches}")
+        torch.cuda.empty_cache()
+        with _GateRecorder() as cpu_rec:
+            cpu = serve_lm.run(device="cpu")
+        with _GateRecorder() as card_rec:
+            card = serve_lm.run(device="cuda")
+        held, total = _hold_lm_runs("serve_lm", card_rec.calls, cpu_rec.calls,
+                                    EngineConfig().ensemble_temp)
+        if held == total and not np.array_equal(card["tokens"], cpu["tokens"]):
+            raise AssertionError("serve_lm: the card's tokens differ from the CPU's")
+        report["launcher"] = {"argv": argv, "s": secs, "launches": launches,
+                              "tokens": [q.out_tokens for q in reqs]}
+        report["serve_lm"] = {"steps_held": held, "steps": total,
+                              "tokens_equal": bool(np.array_equal(card["tokens"], cpu["tokens"]))}
+        self.say(f"lm_serve launch.serve {' '.join(argv)}: {secs:.1f} s with the init, launches "
+                 f"{launches}; serve_lm on the card against the CPU: {held}/{total} steps held "
+                 f"(tokens equal: {report['serve_lm']['tokens_equal']})")
 
     def operators(self):
         self.op_err = {"sne_encode": 0, "pand_popcount": 0, "bayes_decide": 0, "fusion_map": 0.0}
@@ -2364,7 +2733,7 @@ def main() -> int:
     s.phase("device", s.device)
     run("build")
     for name in ("kernels", "main_path", "timing", "binary_timing", "drain_trace", "router",
-                 "paper_layer", "operators"):
+                 "paper_layer", "lm_serve", "operators"):
         run(name, "build")
     run("operator_timing", "build", "operators")
     run("unfused_kernels", "build")
@@ -2419,6 +2788,9 @@ def main() -> int:
             "full_ms": full["ms"], "full_call_ms": full["call_ms"],
             "full_bound_ms": full["bound_ms"],
         }
+        if name == "bayes_decide":   # at the LM engine's gate (lm_serve)
+            entry.update(lm_gate_ms=s.lm_gate["ms"], lm_gate_bound_ms=s.lm_gate["bound_ms"],
+                         lm_gate_launches=s.lm_gate["launches"])
         if name == "fusion_map":
             entry["composed_ms"] = line["composed_ms"]
             entry["full_composed_ms"] = full["composed_ms"]

@@ -9,6 +9,9 @@ Hopper, ``sm_90a``, or unfused on the ``sne_encode`` / ``node_mux`` kernels),
 oracle, each CUDA kernel beside its plain torch version; and the
 paper-figure layer (``repro_torch.core``: device model, SNEs, probabilistic
 logic, correlation, inference, the Fig S8 motifs, stochastic fusion, the
-latency model) with the four paper examples (``repro_torch.examples``).
+latency model) with the four paper examples (``repro_torch.examples``); and
+the LM serving path -- the configs of every arch, the attention-only decoder
+stack (``repro_torch.models``), the ``ServeEngine`` whose Bayes gate runs the
+``bayes_decide`` kernel, its launcher and the ``serve_lm`` example.
 Entry points take ``device=`` and default to the card.
 """

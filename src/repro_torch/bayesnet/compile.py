@@ -48,6 +48,7 @@ import torch
 from repro_torch.bayesnet.noise import NoiseModel, perturbed_cdf_rows
 from repro_torch.bayesnet.spec import NetworkSpec
 from repro_torch.core import bitops, cordiv, prng, rng
+from repro_torch.distributed.context import MULTI_DEVICE_TODO as _DEVICES_TODO
 from repro_torch.kernels import backend
 from repro_torch.kernels.net_sweep import SweepPlan, net_sweep
 from repro_torch.kernels.net_sweep import kernel as net_sweep_kernel
@@ -60,8 +61,6 @@ from repro_torch.kernels.node_mux import (
 from repro_torch.kernels.node_mux.kernel import MAX_PARENTS
 from repro_torch.kernels.sne_encode import sne_encode
 from repro_torch.obs import Tracer
-
-_DEVICES_TODO = "ROADMAP queue 1 item 10 (multi-device launch)"
 
 
 def network_stats(net: "CompiledNetwork") -> dict:

@@ -129,32 +129,76 @@ def _f32(v, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=device)
 
 
+def _add_to_odd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a + b`` in float64, rounded to odd: the exact sum where it is a
+    float64, else the one of its two float64 neighbours whose last bit is 1.
+
+    TwoSum gives the add's exact error; where it is not zero and the
+    nearest-rounded sum is even, the sum steps one ulp toward the exact
+    value (one step of the bit pattern, away from zero where the error has
+    the sum's sign).  A sum rounded to odd in 53 bits and then to nearest in
+    24 is the sum correctly rounded to float32 (53 >= 24 + 2).
+    """
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)
+    bits = s.view(torch.int64)
+    inexact_even = (err != 0) & ((bits & 1) == 0)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    return torch.where(inexact_even, bits + step, bits).view(torch.float64)
+
+
+def _ou_steps(x_prev: torch.Tensor, mu, theta, kick) -> torch.Tensor:
+    """The OU step from each ``x_prev`` at once (any leading axes): both FMAs
+    correctly rounded -- the float32 products exact in float64, each add
+    rounded to odd (:func:`_add_to_odd`), then once to float32."""
+    pull = (mu - x_prev).float().double() * theta
+    pull = _add_to_odd(pull, x_prev.double()).float()
+    return _add_to_odd(pull.double(), kick).float()
+
+
 def ou_scan(eps: torch.Tensor, mu, x0, theta, s_w) -> torch.Tensor:
     """The AR(1) recurrence ``x' = x + theta (mu - x) + s_w e`` over ``eps``'s
     leading (time) axis, every other axis at once; returns the path, the
     shape of ``eps``.
 
     The reference's compiled scan body contracts both multiply-adds into
-    fused multiply-adds: ``x' = fma(s_w, e, fma(theta, mu - x, x))``.  Each
-    FMA here is taken in float64 (the float32 product is exact there) and
-    rounded once to float32, so the same noise gives the reference's path
-    bit for bit (a double rounding could differ in the last bit; the tests
-    have not seen one).  ``s_w * e`` is taken for all steps at once.
+    fused multiply-adds: ``x' = fma(s_w, e, fma(theta, mu - x, x))``.  The
+    loop takes each FMA's float32 product exactly in float64, adds in
+    float64 and rounds to float32: the correctly rounded FMA unless the
+    float64 add lands on a float32 midpoint it did not hold exactly (then
+    rounding twice can miss by an ulp).  So the whole path is then checked at
+    once by :func:`_ou_steps`, which rounds each add to odd first and is
+    correct on every operand; the loop resumes after the first step that
+    differs, with that step's correct value.  The same noise gives the
+    reference's path bit for bit.  ``s_w * e`` is taken for all steps at once.
     """
     dev = eps.device
+    n = eps.shape[0]
     mu = _f32(mu, dev).to(torch.float64)
     theta = _f32(theta, dev).to(torch.float64)
     x = _f32(x0, dev).expand(eps.shape[1:]).clone()
     kick = _f32(s_w, dev).to(torch.float64) * eps.to(torch.float64)
     path = torch.empty_like(eps)
     pull = torch.empty(x.shape, dtype=torch.float64, device=dev)
-    for t in range(eps.shape[0]):
-        torch.sub(mu, x, out=pull)
-        # round mu - x to float32, then fma(theta, ., x) and fma(s_w, e, .)
-        pull = pull.float().double().mul_(theta).add_(x)
-        pull = pull.float().double().add_(kick[t])
-        x = path[t]
-        x.copy_(pull)
+    t0, before = 0, x
+    while t0 < n:
+        for t in range(t0, n):
+            torch.sub(mu, x, out=pull)
+            # mu - x rounded to float32, then fma(theta, ., x) and fma(s_w, e, .)
+            pull = pull.float().double().mul_(theta).add_(x)
+            pull = pull.float().double().add_(kick[t])
+            x = path[t]
+            x.copy_(pull)
+        prev = torch.cat([before[None], path[t0:n - 1]])
+        exact = _ou_steps(prev, mu, theta, kick[t0:])
+        wrong = (exact.view(torch.int32) != path[t0:].view(torch.int32)).reshape(n - t0, -1).any(1)
+        if not bool(wrong.any()):
+            break
+        t = t0 + int(torch.nonzero(wrong)[0])      # every step before it holds
+        path[t] = exact[t - t0]
+        before = x = path[t]
+        t0 = t + 1
     return path
 
 
@@ -219,6 +263,7 @@ def endurance_trace(key, cycles: int, params: MemristorParams = DEFAULT_PARAMS, 
     dev = resolve_device(device)
     k1, k2 = prng.split(key)
     lrs = _f32(1e4, dev) * torch.exp(_f32(0.05, dev) * prng.normal(k1, (cycles,), device=dev))
-    hrs = lrs.mean() * _f32(params.switching_ratio, dev) * torch.exp(
+    # the mean in float64, rounded once: the same on every device and thread count
+    hrs = lrs.double().mean().float() * _f32(params.switching_ratio, dev) * torch.exp(
         _f32(0.08, dev) * prng.normal(k2, (cycles,), device=dev))
     return hrs, lrs

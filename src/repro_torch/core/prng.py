@@ -29,7 +29,10 @@ rotate masked to 32 bits, as above), bit for bit, and :func:`normal` is
 values, by up to 63 ulp); :func:`erf_inv` is XLA's float32 polynomial
 (Giles' approximation, the ``w < 5`` / ``w >= 5`` branches of ``ErfInv32``)
 with the same order of operations, and differs from it only through the
-platforms' ``log1p`` and ``sqrt``, by at most a few ulp.
+platforms' ``log1p``, by at most a few ulp.  Its ``sqrt`` is taken in
+float64 and rounded once, which is the correctly rounded float32 root on
+every device: torch's float32 ``sqrt`` on the CPU is not, and its result
+there has been seen to change between runs and with the thread count.
 """
 
 from __future__ import annotations
@@ -226,8 +229,8 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``erf_inv``, operation for operation, on ``x``'s device.
 
     ``w = -log1p(-x * x)``; below 5 the polynomial runs in ``w - 2.5``, else
-    in ``sqrt(w) - 3``; the result is ``p(w) * x``, and ``+-inf`` at
-    ``|x| == 1``.
+    in ``sqrt(w) - 3`` (the root correctly rounded, through float64); the
+    result is ``p(w) * x``, and ``+-inf`` at ``|x| == 1``.
     """
     x = torch.as_tensor(x, dtype=torch.float32)
 
@@ -236,7 +239,7 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
 
     w = -torch.log1p(x * -x)
     lt = w < f32(5.0)
-    w = torch.where(lt, w - f32(2.5), torch.sqrt(w) - f32(3.0))
+    w = torch.where(lt, w - f32(2.5), torch.sqrt(w.double()).float() - f32(3.0))
     p = None
     for lo, hi in zip(_ERFINV_LT5, _ERFINV_GE5):
         c = torch.where(lt, f32(lo), f32(hi))
@@ -251,7 +254,7 @@ def normal(keys, shape=(), *, device="cuda", partitionable: bool = True) -> torc
     The uniform on ``[lo, 1)``, ``lo = nextafter(-1, 0)``, is the unit draw
     times ``1 - lo`` plus ``lo``, floored at ``lo``; the normal is
     ``sqrt(2) * erf_inv(u)``.  Equal to the reference's draw within a few
-    ulp (the platforms' ``log1p`` and ``sqrt`` round differently).
+    ulp (the platforms' ``log1p`` rounds differently).
     ``keys`` may be a batch, as for :func:`device_bits`.
     """
     u01 = device_uniform(keys, shape, device=device, partitionable=partitionable)

@@ -22,10 +22,14 @@ from repro_torch.kernels.bayes_decide.ops import bayes_decide
 
 
 def _candidates(logits_sources, top_k: int, device):
-    """(M, B, V) logits -> (candidate ids (B, k), per-source softmax over them (M, B, k))."""
+    """(M, B, V) logits -> (candidate ids (B, k), per-source softmax over them (M, B, k)).
+
+    Candidates are the top-k of the mean logits in ``lax.top_k``'s order."""
     x = torch.as_tensor(logits_sources, dtype=torch.float32).to(backend.resolve_device(device))
     m = x.shape[0]
-    _, cand = torch.topk(x.mean(0), top_k, dim=-1)                # (B, k)
+    # lax.top_k's order: by value, equal values by index (a stable sort);
+    # bf16 logits tie often, and torch.topk orders ties as it likes
+    cand = torch.sort(x.mean(0), dim=-1, descending=True, stable=True)[1][..., :top_k]
     cand_logits = torch.gather(x, -1, cand[None].expand(m, -1, -1))
     return cand, torch.softmax(cand_logits, dim=-1)
 

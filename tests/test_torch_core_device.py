@@ -312,3 +312,130 @@ def test_switching_event_saturates():
     zeros = device.switching_event(prng.PRNGKey(3), 0.0, 256, device="cpu")
     assert ones.dtype == torch.uint8 and tuple(ones.shape) == (256,)
     assert bool(ones.all()) and not bool(zeros.any())
+
+
+# --- the OU step's two FMAs on operands that sit on a float32 midpoint ---------------
+
+
+def _f32_bits(v):
+    return int(np.float32(v).view(np.int32))
+
+
+def _fma_f32(a, b, c):
+    """fma(a, b, c) of float32 operands, correctly rounded to float32 (exact
+    rational arithmetic, ties to even)."""
+    from fractions import Fraction
+
+    exact = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    lo = np.float32(float(exact))                     # within one float32 ulp of it
+    cands = [np.nextafter(lo, np.float32(-np.inf)), lo, np.nextafter(lo, np.float32(np.inf))]
+    best = min(abs(Fraction(float(v)) - exact) for v in cands)
+    near = [v for v in cands if abs(Fraction(float(v)) - exact) == best]
+    return near[0] if len(near) == 1 else [v for v in near if not _f32_bits(v) & 1][0]
+
+
+def _fma_twice_rounded(a, b, c):
+    """The old emulation: the float64 add rounded to nearest, then to float32."""
+    return np.float32(np.float64(a) * np.float64(b) + np.float64(c))
+
+
+def _mantissa_pair():
+    """Two 24-bit mantissas whose product is 2**47 + d, 0 < d < 2**17: the
+    product's bit 47 is followed by 29 zeros, then d."""
+    for m_a in range(2**23 + 1, 2**24):
+        m_b = -(-2**47 // m_a)
+        if 2**23 <= m_b < 2**24 and 0 < m_a * m_b - 2**47 < 2**17:
+            return m_a, m_b
+    raise AssertionError("no mantissa pair found")
+
+
+def test_ou_fma1_midpoint_operands_are_bit_exact():
+    """fma(theta, mu - x, x) exactly half a float32 ulp below x = 1.5, plus
+    less than half a float64 ulp: the old emulation's float64 add lands on the
+    midpoint and ties to 1.5; the FMA, and the reference's compiled scan,
+    round down."""
+    m_t, m_d = _mantissa_pair()
+    theta = np.float32(m_t * 2.0**-47)                # 2**-24 <= theta < 2**-23
+    d = -np.float32(m_d * 2.0**-24)                   # -1 < d <= -0.5
+    cases, x0, mu = [], [], []
+    for j in range(4):                                # several streams, one theta
+        x = np.float32(1.5 + j * 2.0**-22)            # even mantissas, exponent 0
+        x0.append(x)
+        mu.append(np.float32(x + d))
+        assert np.float32(mu[-1] - x) == d            # d is exact
+        cases.append((theta, d, x))
+    params = dataclasses.replace(P, ou_theta=float(theta), vth_sigma=0.0)   # s_w = 0
+    assert np.float32(params.ou_theta) == theta and np.float32(params.ou_sigma_w) == 0.0
+    mu, x0 = np.array(mu, np.float32), np.array(x0, np.float32)
+    assert all(_fma_twice_rounded(*c) != _fma_f32(*c) for c in cases), \
+        "the constructed operands do not separate the two roundings"
+    k = jax.random.PRNGKey(11)
+    want = np.asarray(jax.jit(jdevice.sample_ou_path, static_argnums=(1, 2))(
+        k, 3, params, jnp.asarray(mu), jnp.asarray(x0)))
+    assert [_f32_bits(v) for v in want[0]] == [_f32_bits(_fma_f32(*c)) for c in cases]
+    eps = torch.from_numpy(np.array(jax.random.normal(k, (3, len(mu)))))
+    got = device.ou_scan(eps, torch.from_numpy(mu), torch.from_numpy(x0),
+                         np.float32(params.ou_theta), np.float32(params.ou_sigma_w))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_ou_fma2_midpoint_operands_are_bit_exact():
+    """fma(s_w, e, x) with mu = x, so the first FMA is x itself: for one of
+    the reference's own draws e, s_w is chosen so that s_w * e is half a
+    float32 ulp of x plus less than half a float64 ulp.  The old emulation
+    ties to x; the FMA and the reference's compiled scan do not."""
+    k = jax.random.PRNGKey(5)
+    n = 64
+    e = np.array(jax.random.normal(k, (1, n)))[0]
+    ms = [int(np.abs(v).view(np.int32)) & 0x7FFFFF | 0x800000 for v in e]
+    pick = None
+    for i, m_e in enumerate(ms):
+        m_s = -(-2**47 // m_e)
+        if m_s < 2**24 and 0 < m_s * m_e - 2**47 < 2**17:
+            pick = (i, m_s)
+            break
+    assert pick is not None, "no draw gives a midpoint"
+    i, m_s = pick
+    s_w = np.float32(m_s * 2.0**-26)                  # 0.125 <= s_w < 0.25
+    c = np.sqrt(1.0 - (1.0 - P.ou_theta) ** 2)
+    sigma = float(s_w) / c
+    for _ in range(8):                                # vth_sigma whose s_w rounds to s_w
+        if np.float32(sigma * c) == s_w:
+            break
+        sigma = np.nextafter(sigma, np.inf if np.float32(sigma * c) < s_w else -np.inf)
+    params = dataclasses.replace(P, vth_sigma=sigma)
+    assert np.float32(params.ou_sigma_w) == s_w
+    # s_w * e = 2**(ee - 48) * (2**47 + d): half a float32 ulp of x at exponent ee + 22
+    ee = int((np.abs(e[i]).view(np.int32) >> 23) & 0xFF) - 127
+    x = np.full(n, np.float32(P.vth_mu), np.float32)
+    x[i] = np.float32(1.5 * 2.0 ** (ee + 22))
+    case = (s_w, e[i], x[i])
+    assert _fma_twice_rounded(*case) != _fma_f32(*case)
+    want = np.asarray(jax.jit(jdevice.sample_ou_path, static_argnums=(1, 2))(
+        k, 1, params, jnp.asarray(x), jnp.asarray(x)))
+    assert _f32_bits(want[0, i]) == _f32_bits(_fma_f32(*case))
+    got = device.ou_scan(torch.from_numpy(e[None]), torch.from_numpy(x), torch.from_numpy(x),
+                         np.float32(params.ou_theta), np.float32(params.ou_sigma_w))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_fig1_flows_are_bit_reproducible_across_runs_and_thread_counts():
+    """The Fig 1 flows run twice, then once more on one thread: the same bits."""
+    def flows():
+        path = device.sample_ou_path(_kd(jax.random.PRNGKey(0)), 20000, device="cpu")
+        mus = device.sample_devices(_kd(jax.random.PRNGKey(1)), 1000, device="cpu")
+        hrs, lrs = device.endurance_trace(_kd(jax.random.PRNGKey(2)), 100000, device="cpu")
+        fit = np.array(device.fit_ou(path))
+        return [t.numpy().copy() for t in (path, mus, hrs, lrs)] + [fit]
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        runs = [flows(), flows()]
+        torch.set_num_threads(1)
+        runs.append(flows())
+    finally:
+        torch.set_num_threads(threads)
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8))
