@@ -106,7 +106,28 @@ Phases (any failure makes the script exit non-zero without the result line):
               decode, gate), ``repro_torch.launch.serve`` for phi3 with the
               stochastic gate, and ``examples.serve_lm.run`` card against CPU
               (tokens held while the fused top-2 gap clears 1e-2).
-11. operators -- the paper's fusion operators.  Each of ``sne_encode``,
+11. lm_blocks -- the other block kinds (MoE, MLA, RG-LRU, xLSTM, enc-dec, the
+              MTP head).  recurrentgemma-2b and xlstm-350m at their published
+              configs, every layer, served as lm_serve serves phi3 (init s and
+              peak memory, decode after prefill against the teacher-forced
+              forward, 6 requests through ``ServeEngine`` with the stochastic
+              gate, counts reset just before and read just after, the gate
+              equal to its plain version at every step); seamless-m4t-large-v2
+              at its published config, a prefill of frames and tokens and 8
+              greedy decode steps through ``api`` (the engine serves no
+              frames, in the reference neither); llama4-scout at full width
+              cut to 4 layers and deepseek-v3 at full width cut to 2 layers
+              with its MTP head (``reduced``: the whole configs do not fit one
+              card): decode after prefill against the forward with the expert
+              routing of the two runs compared first, the sort dispatch
+              against the dense impl on a layer's own weights, and deepseek's
+              main and MTP heads fused by ``fuse_posteriors_stochastic`` (one
+              ``bayes_decide`` launch, equal to its plain version; its device
+              time beside its bound).  Then card against CPU: recurrentgemma at
+              full width cut to 5 layers, xlstm-350m whole, seamless cut to 2 +
+              2 layers, and the five archs' smoke configs, routing first.
+              Each model is freed before the next.
+12. operators -- the paper's fusion operators.  Each of ``sne_encode``,
               ``pand_popcount``, ``bayes_decide`` and ``fusion_map`` against
               its plain torch version on the card (bit for bit; fusion_map
               within atol 2e-6, rtol 1e-5) at M 1..3, K 1, 2, 8, 16 and 33,
@@ -123,7 +144,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               decision (4096 decisions, M=K=2, 128 bits: fused, composed,
               ``bayes_decide_packed``); and the ``obstacle_fusion`` example
               flow at 64x64 (``examples.obstacle_fusion.run``).
-12. operator_timing -- device time per launch (``torch.profiler``, the L2
+13. operator_timing -- device time per launch (``torch.profiler``, the L2
               flushed before each launch) and per back-to-back call (CUDA
               events) of the four kernels at the full batch and at a
               65,536-pixel slice of it, beside their plain
@@ -136,7 +157,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               bound counts the shared body's least integer work per entropy
               word, logic on the 64 ALU lanes of an SM and multiplies and
               adds free to use all 128, as ``net_sweep``'s.
-13. unfused_kernels -- the ``node_mux`` kernels against their plain versions
+14. unfused_kernels -- the ``node_mux`` kernels against their plain versions
               on the card, bit for bit: gather and rows at 0 to 6 parents
               (per-row tables and shared rows holding thresholds 0, 128, 256
               and the half steps) and at 7 and 8 (the gather on the
@@ -145,7 +166,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               (per-row and shared tables; 6 binary parents at k = 2) and
               its wide path at 9 planes and at 17 parents, k-ary roots, and
               counter origins that wrap 2**32.
-14. unfused_path -- the unfused lowering through its entry points at
+15. unfused_path -- the unfused lowering through its entry points at
               n_bits=4096, B=1024, counts reset just before and read just
               after: 7 scenarios x {``fused=False``, ``share_entropy=True``},
               ``mux_mode='rows'`` on the 4 binary scenarios and
@@ -156,12 +177,12 @@ Phases (any failure makes the script exit non-zero without the result line):
               Then the unfused, shared-entropy and fused posteriors against the
               enumeration oracle: per distinct evidence vector, the posterior
               pooled over its frames within 4.5 sqrt(p (1-p) / accepted).
-15. wide_path -- the wide network through ``compile_network`` fused,
+16. wide_path -- the wide network through ``compile_network`` fused,
               ``fused=False``, ``share_entropy=True`` and ``mux_mode='rows'`` at
               n_bits=4096, B=1024, each ``decide`` bit-equal to
               ``device="cpu"``; counts reset just before and read just after,
               and each wide kernel must have launched.
-16. unfused_timing -- device time per launch and per back-to-back call of the
+17. unfused_timing -- device time per launch and per back-to-back call of the
               node_mux kernels at B=1024 and B=65,536 (n_bits=4096; the wide
               paths at B=256) beside their plain versions and bounds; launches
               of each kernel per unfused ``run`` of each scenario; wall time per
@@ -184,6 +205,7 @@ import collections
 import concurrent.futures
 import copy
 import dataclasses
+import gc
 import json
 import pathlib
 import re
@@ -248,7 +270,7 @@ from repro_torch.kernels.sne_encode.ref import sne_encode_ref  # noqa: E402
 from repro_torch.distributed.fault import LaunchFaultInjector  # noqa: E402
 from repro_torch.obs import PAPER_BUDGET_MS  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
-from repro_torch.models import api, bayes_head, transformer  # noqa: E402
+from repro_torch.models import api, bayes_head, encdec, layers, moe, transformer  # noqa: E402
 from repro_torch.serve import BayesRouter, EngineConfig, Request, RouterPolicy, ServeEngine, tenant_salt  # noqa: E402,E501
 from repro_torch.serve import engine as engine_mod  # noqa: E402
 from torch_wide_net import wide_spec  # noqa: E402
@@ -1069,31 +1091,87 @@ LM_PREFILL_TOL, LM_DECODE_TOL = (2e-2, 2e-2), (1e-1, 1e-1)
 # an H100: up to 0.035, beyond the prefill bound's 2e-2 + 2e-2 |x|); held
 # within the decode bound's atol
 LM_WIDE_TOL = (1e-1, 2e-2)
+# the recurrent archs amplify bf16 ulps with depth (RG-LRU's decay is
+# exp(-8 softplus(lambda) r) of a bf16 gate; xLSTM's mixers are exponentially
+# gated), and a GEMM whose roundings depend on its row count (cuBLAS picks
+# kernels by shape) parts a prefill of t-1 tokens, or a decode step, from the
+# forward of t.  The reference itself, compiled on a CPU, breaks the elementwise
+# bounds above at xlstm-350m's width from 16 layers on (prefill 1557 logits
+# beyond 2e-2, decode relative error 0.041, run op by op 0.056, growing with
+# depth).  So these archs are held by the relative (Frobenius) error of their
+# logits instead
+LM_RECURRENT_REL = 0.1
 LM_MARGIN = 1e-2                      # a token is held only where the fused top-2 gap clears this
+# the other block kinds (lm_blocks): each published config, cut where stated
+BLOCKS_SERVED = ("recurrentgemma-2b", "xlstm-350m")    # every layer, served like lm_serve
+BLOCKS_ENCDEC = "seamless-m4t-large-v2"                # every layer; the engine serves no frames
+BLOCKS_DECODE_STEPS = 8
+# full width, depth cut: the whole configs (107.8 B and 682.6 B parameters,
+# 215.5 and 1365.3 GB in bf16) do not fit one 80 GB card
+BLOCKS_MOE_CUTS = {
+    "llama4-scout-17b-a16e": dict(num_layers=4),       # one repetition of its pattern
+    "deepseek-v3-671b": dict(num_layers=2, prefix_kinds=("attn_dense_prefix",)),
+}
+BLOCKS_SMOKE = ("recurrentgemma-2b", "xlstm-350m", "llama4-scout-17b-a16e", "deepseek-v3-671b",
+                "seamless-m4t-large-v2")
+# card against CPU at full width: (arch, cuts, weights' dtype).  In bf16 the
+# recurrences amplify the devices' ulp differences with depth -- the reference
+# compiled against itself run op by op differs, relative, by 0.013, 0.031 and
+# 0.095 at 4, 8 and 16 of xlstm-350m's layers (on a CPU), and the card against
+# the CPU by 0.21 at its 24 -- so xlstm is held in bf16 at one repetition of its
+# pattern and at its full size with every leaf cast to float32, where only
+# float32 roundings are left to amplify
+BLOCKS_CPU_CUTS = (
+    ("recurrentgemma-2b", dict(num_layers=5), torch.bfloat16),   # 2 prefix layers + 1 repetition
+    ("xlstm-350m", dict(num_layers=4), torch.bfloat16),          # one repetition
+    ("xlstm-350m", {}, torch.float32),                           # full size
+    ("seamless-m4t-large-v2", dict(num_layers=4, enc_layers=2, dec_layers=2), torch.bfloat16),
+)
+LM_F32_REL = 1e-3                     # float32 weights, card against CPU: relative error
+MTP_BITS = 256                        # the MTP fusion's bayes_decide, at the gate's width
+# the sort dispatch against the dense impl on one MoE layer's own bf16 weights:
+# the same experts, their products summed in other orders (bmm over a padded
+# capacity against a matmul per expert, the combine rounded per add against one
+# einsum), so bf16 ulps of an output of scale 1
+MOE_DISPATCH_TOL = (2e-2, 2e-2)
+# MoE routing compared first (tests/test_torch_lm_models.py's bounds): a float32
+# router logit summed in another order can move a near-tie and flip a token's
+# experts; at most this share of the tokens, each at a top-k margin under this
+ROUTE_SHARE, ROUTE_MARGIN = 0.125, 2e-2
 
 
 def _close(what, got, want, tol):
-    """Float logits within (atol, rtol) of the other device's; returns the max abs diff."""
+    """Float logits within ``tol`` -- (atol, rtol) elementwise, or a float: the
+    relative Frobenius error -- of the other run's; returns the max abs diff."""
     got, want = got.float().cpu(), want.float().cpu()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{what}: non-finite logits")
     diff = (got - want).abs()
+    if isinstance(tol, float):     # a bound of the relative error
+        rel = float(diff.norm() / want.norm())
+        if rel > tol:
+            raise AssertionError(f"{what}: relative error {rel} beyond {tol}; max abs diff "
+                                 f"{float(diff.max())}")
+        return float(diff.max())
     bad = diff > tol[0] + tol[1] * want.abs()
     if bool(bad.any()):
         i = int(torch.nonzero(bad.reshape(-1))[0])
         raise AssertionError(f"{what}: {int(bad.sum())} of {bad.numel()} logits beyond {tol}; "
                              f"first at flat index {i}: {got.reshape(-1)[i].item()!r} against "
-                             f"{want.reshape(-1)[i].item()!r}")
+                             f"{want.reshape(-1)[i].item()!r}; max abs diff {float(diff.max())}, "
+                             f"relative {float(diff.norm() / want.norm())}")
     return float(diff.max())
 
 
 def _lm_batch(cfg, dev, seq=12, batch=2, seed=3):
-    """Seeded tokens (and patch embeddings for the vlm stub) on ``dev``."""
+    """Seeded tokens (and the vlm's patch or the audio model's frame
+    embeddings) on ``dev``."""
     r = np.random.default_rng(seed)
     toks = torch.from_numpy(r.integers(0, cfg.vocab_size, (batch, seq))).to(dev)
     extra = None
-    if cfg.frontend == "patch":
-        extra = torch.from_numpy(r.standard_normal((batch, LM_PATCHES, cfg.d_model))
+    if cfg.frontend in ("patch", "frame"):     # the vlm's patches, the audio encoder's frames
+        n = LM_PATCHES if cfg.frontend == "patch" else seq // cfg.enc_ratio
+        extra = torch.from_numpy(r.standard_normal((batch, n, cfg.d_model))
                                  .astype(np.float32)).to(dev)
     return toks, extra
 
@@ -1129,6 +1207,132 @@ def _fused_gap(logits, temp):
     _, _, fused = bayes_head.fuse_posteriors(src, top_k=8, device=logits.device)
     top2 = torch.topk(fused, 2, dim=-1).values
     return (top2[:, 0] - top2[:, 1]).cpu()
+
+
+def _free_card():
+    """Drop what the last model left on the card and reset the peak counter."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _init_on_card(cfg):
+    """``api.init`` from PRNGKey(0) on the card: (params, its seconds, peak and size)."""
+    _free_card()
+    t0 = time.perf_counter()
+    params = api.init(cfg, prng.PRNGKey(0), device="cuda")
+    torch.cuda.synchronize()
+    return params, {"init_s": time.perf_counter() - t0,
+                    "init_peak_bytes": torch.cuda.max_memory_allocated(),
+                    "params": api.param_count(params),
+                    "param_bytes": sum(t.numel() * t.element_size() for t in params.parameters())}
+
+
+def _forward(model, cfg, toks, extra):
+    """Teacher-forced logits of either family."""
+    if cfg.family == "audio":
+        return encdec.forward(model, cfg, extra, toks)[0]
+    return transformer.forward(model, cfg, toks, extra)[0]
+
+
+def _batch_of(toks, extra):
+    return {"tokens": toks} | ({} if extra is None else {"extra_embeds": extra})
+
+
+def _consistency(params, cfg, routes=None):
+    """Decode after prefill of t-1 tokens against the teacher-forced forward at
+    t (tests/models/test_smoke_archs.py's bounds); with a ``_Routes`` recorder,
+    on the rows whose routing the two runs share (see ``_Routes.held``)."""
+    toks, extra = _lm_batch(cfg, "cuda")
+    n = LM_PATCHES if cfg.frontend == "patch" else 0
+    rows = torch.arange(toks.shape[0])
+    with torch.inference_mode():
+        full = _forward(params, cfg, toks, extra)
+        lp, st = api.prefill(params, cfg, _batch_of(toks[:, :-1], extra), 16 + n)
+        ld, _ = api.decode(params, cfg, toks[:, -1], st, toks.shape[1] - 1 + n)
+    out = {}
+    if routes is not None:
+        rows, out["routing"] = routes.held(cfg, toks.shape[0])
+    out["prefill"] = _close("prefill vs forward", lp[rows], full[rows, -2],
+                            _tol(cfg, LM_PREFILL_TOL))
+    out["decode"] = _close("decode vs forward", ld[rows], full[rows, -1], _tol(cfg, LM_DECODE_TOL))
+    out["relative"] = {name: float((a.float() - b.float()).norm() / b.float().norm())
+                       for name, a, b in (("prefill", lp[rows], full[rows, -2]),
+                                          ("decode", ld[rows], full[rows, -1]))}
+    return out
+
+
+def _tol(cfg, tol):
+    """``tol``, or LM_RECURRENT_REL for a recurrent arch."""
+    return LM_RECURRENT_REL if any(k in ("rec", "mlstm", "slstm") for k in cfg.pattern) else tol
+
+
+class _Routes:
+    """Records the expert ids and router logits of every MoE router call while
+    active, for runs of one model whose routing should agree."""
+
+    def __enter__(self):
+        self.calls, self._probs = [], moe._router_probs
+        rec = self
+
+        def probs(logits, kind, k):
+            out = rec._probs(logits, kind, k)
+            rec.calls.append((logits.detach().float().cpu(), out[1].cpu()))
+            return out
+        moe._router_probs = probs
+        return self
+
+    def __exit__(self, *exc):
+        moe._router_probs = self._probs
+
+    def held(self, cfg, rows):
+        """A forward, then a prefill of t-1 tokens and its decode, recorded in
+        that order: their routing compared token for token (``_route_agreement``)."""
+        n = len(self.calls) // 3
+        fw, pre, dec = self.calls[:n], self.calls[n:2 * n], self.calls[2 * n:]
+        return _route_agreement(cfg, rows, [(f[0], f[1], _join_calls(p, d, rows)[1])
+                                            for f, p, d in zip(fw, pre, dec)])
+
+
+def _join_calls(pre, dec, rows):
+    """A prefill's router call and its decode's, as one call over each row's tokens."""
+    return tuple(torch.cat([p.reshape(rows, -1, p.shape[-1]), d.reshape(rows, -1, d.shape[-1])],
+                           1).reshape(-1, p.shape[-1]) for p, d in zip(pre, dec))
+
+
+def _route_agreement(cfg, rows, calls):
+    """Router calls of two runs of one model, layer by layer: (logits of run a,
+    ids of run a, ids of run b), tokens flat row-major.  A token at or past its
+    row's first disagreement in an earlier layer has another input by then;
+    before it, a disagreement must be a near-tie (the least gap between
+    adjacent scores among run a's first k + 1 under ROUTE_MARGIN), and at most
+    ROUTE_SHARE of the tokens may disagree.  Returns (rows that agree
+    throughout, report)."""
+    first, n_tok, bad, margins = None, 0, 0, []
+    for la, ia, ib in calls:
+        s = ia.shape[0] // rows
+        if first is None:
+            first = torch.full((rows,), s)
+        clean = (torch.arange(s)[None, :] < first[:, None]).reshape(-1)
+        differ = (ia != ib).any(-1) & clean
+        n_tok, bad = n_tok + int(clean.sum()), bad + int(differ.sum())
+        if bool(differ.any()):
+            scores = torch.sigmoid(la) if cfg.moe.router == "sigmoid" else torch.softmax(la, -1)
+            top = torch.sort(scores, -1, descending=True)[0][:, : cfg.moe.top_k + 1]
+            margin = (top[:, :-1] - top[:, 1:]).amin(-1)[differ]
+            margins += margin.tolist()
+            if bool((margin >= ROUTE_MARGIN).any()):
+                raise AssertionError(f"{cfg.name}: expert ids differ at top-k margins "
+                                     f"{margin.tolist()} (not near-ties)")
+        d = differ.reshape(rows, s)
+        first = torch.minimum(first, torch.where(d.any(1), d.int().argmax(1), s))
+    if bad > ROUTE_SHARE * max(n_tok, 1):
+        raise AssertionError(f"{cfg.name}: expert ids differ at {bad} of {n_tok} tokens")
+    held = torch.arange(rows) if first is None else torch.nonzero(first == s)[:, 0]
+    if len(held) == 0:
+        raise AssertionError(f"{cfg.name}: no row routes alike in both runs")
+    return held, {"tokens": n_tok, "differ": bad, "margins": margins, "rows_held": len(held)}
 
 
 class _GateRecorder:
@@ -1815,30 +2019,30 @@ class Smoke:
         report = self.report["lm_serve"] = {}
         self._lm_full(report)
         self._lm_cut(report)
-        self._lm_smoke(report)
+        report["smoke"] = self._smoke_card_vs_cpu("lm_serve", LM_ARCHS)
         self._lm_launcher(report)
 
     def _lm_full(self, report):
         cfg = get_config(LM_ARCH)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        params = api.init(cfg, prng.PRNGKey(0), device="cuda")
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        init_peak = torch.cuda.max_memory_allocated()
-        n_params = api.param_count(params)
-        param_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
-        # decode after prefill of t-1 tokens against the teacher-forced forward at t
-        toks, _ = _lm_batch(cfg, "cuda")
-        with torch.inference_mode():
-            full, _ = transformer.forward(params, cfg, toks)
-            lp, st = api.prefill(params, cfg, {"tokens": toks[:, :-1]}, 16)
-            ld, _ = api.decode(params, cfg, toks[:, -1], st, toks.shape[1] - 1)
-        consistency = {"prefill": _close("prefill vs forward", lp, full[:, -2], LM_PREFILL_TOL),
-                       "decode": _close("decode vs forward", ld, full[:, -1], LM_DECODE_TOL)}
-        del full, lp, ld, st
+        params, init = _init_on_card(cfg)
+        consistency = _consistency(params, cfg)
+        served = self._serve(cfg, params)
+        row = report["full"] = {"arch": LM_ARCH, "layers": cfg.num_layers, **init,
+                                "consistency_max_abs_diff": consistency, **served}
+        self.lm_gate = row["gate"]
+        self.say(f"lm_serve {LM_ARCH} (full config, {cfg.num_layers} layers, {init['params']:,} "
+                 f"params, {init['param_bytes'] / 1e9:.2f} GB): init {init['init_s']:.1f} s, peak "
+                 f"{init['init_peak_bytes'] / 1e9:.2f} GB; prefill vs forward max diff "
+                 f"{consistency['prefill']:.4f}, decode {consistency['decode']:.4f}")
+        self._say_served("lm_serve", row)
+        del params
+        _free_card()
+
+    def _serve(self, cfg, params):
+        """LM_REQUESTS requests of 8-12 prompt tokens through ServeEngine at
+        LM_ENGINE on ``params`` (on the card), counts reset just before and read
+        just after; every step's gate input through bayes_decide held equal to
+        its plain version, and its device time at the engine's shape."""
         engine = ServeEngine(cfg, params, LM_ENGINE, device="cuda")
         r = np.random.default_rng(0)
         reqs = [Request(rid=i, prompt=r.integers(0, cfg.vocab_size, size=int(r.integers(8, 13)))
@@ -1893,108 +2097,139 @@ class Smoke:
         key0, lg0 = rec.calls[0][0], rec.calls[0][1]
         temp = torch.full((), LM_ENGINE.ensemble_temp, device="cuda")
         _, p0 = bayes_head._candidates(torch.stack([lg0, lg0 / temp]), 8, "cuda")
-        kd = rng.seed_words(key0)
-
-        def gate_launch():
-            return bd_kernel.bayes_decide_cuda(*kd, p0, n_bits=LM_ENGINE.gate_n_bits)
-        bound, by, _, _, hashed = self._op_bound("bayes_decide", p0, LM_ENGINE.gate_n_bits)
-        gate = {"shape": list(p0.shape), "n_bits": LM_ENGINE.gate_n_bits, "launches": steps,
-                "ms": _device_ms(gate_launch, kernel="bayes_decide_kernel"),
-                "call_ms": _event_ms(gate_launch, 50), "bound_ms": bound, "bound_by": by,
-                "hashed_share": hashed}
+        gate = self._decide_timing(key0, p0, LM_ENGINE.gate_n_bits)
+        gate["launches"] = steps
         gated = sum(c >= LM_ENGINE.confidence_threshold for q in reqs for c in q.confidences)
         dec = sorted(ms["decode"])
-        row = report["full"] = {
-            "arch": LM_ARCH, "layers": cfg.num_layers, "params": n_params,
-            "param_bytes": param_bytes, "init_s": init_s, "init_peak_bytes": init_peak,
-            "serve_peak_bytes": serve_peak, "consistency_max_abs_diff": consistency,
-            "prefill_ms": ms["prefill"], "decode_ms_median": dec[len(dec) // 2],
-            "decode_ms_min": dec[0], "decode_ms_max": dec[-1], "decode_steps": len(dec),
-            "serve_s": wall, "tokens": emitted, "tokens_per_s": emitted / wall,
-            "gate_calls": steps, "launches": launches, "gated_share": gated / emitted,
-            "late_admits": late, "gate": gate,
-        }
-        self.lm_gate = gate
-        self.say(f"lm_serve {LM_ARCH} (full config, {cfg.num_layers} layers, {n_params:,} "
-                 f"params, {param_bytes / 1e9:.2f} GB): init {init_s:.1f} s, peak "
-                 f"{init_peak / 1e9:.2f} GB; prefill vs forward max diff "
-                 f"{consistency['prefill']:.4f}, decode {consistency['decode']:.4f}")
-        self.say(f"lm_serve serve: {LM_REQUESTS} requests on {LM_ENGINE.max_batch} slots "
-                 f"(rids {late} admitted mid-flight), {emitted} tokens in {wall:.3f} s = "
-                 f"{emitted / wall:.1f} tokens/s; prefills (CUDA events) "
-                 + ", ".join(f"{v:.2f}" for v in ms["prefill"]) + f" ms; decode per step median "
-                 f"{row['decode_ms_median']:.2f} ms (min {dec[0]:.2f}, max {dec[-1]:.2f}) over "
-                 f"{len(dec)} steps; launches {launches}; {gated}/{emitted} emissions cleared the "
-                 f"gate; serve peak {serve_peak / 1e9:.2f} GB")
-        self.say(f"lm_serve gate: bayes_decide at the engine's shape (M, B, K) = "
-                 f"{tuple(p0.shape)}, {LM_ENGINE.gate_n_bits} bits: {gate['ms']:.5f} ms/launch on "
+        return {"serve_peak_bytes": serve_peak, "prefill_ms": ms["prefill"],
+                "decode_ms_median": dec[len(dec) // 2], "decode_ms_min": dec[0],
+                "decode_ms_max": dec[-1], "decode_steps": len(dec), "serve_s": wall,
+                "tokens": emitted, "tokens_per_s": emitted / wall, "gate_calls": steps,
+                "launches": launches, "gated_share": gated / emitted, "late_admits": late,
+                "gate": gate}
+
+    def _decide_timing(self, key, p, n_bits):
+        """bayes_decide at ``p``'s shape: device ms per launch, ms per back-to-back
+        call and the bound."""
+        kd = rng.seed_words(key)
+
+        def launch():
+            return bd_kernel.bayes_decide_cuda(*kd, p, n_bits=n_bits)
+        bound, by, _, _, hashed = self._op_bound("bayes_decide", p, n_bits)
+        return {"shape": list(p.shape), "n_bits": n_bits,
+                "ms": _device_ms(launch, kernel="bayes_decide_kernel"),
+                "call_ms": _event_ms(launch, 50), "bound_ms": bound, "bound_by": by,
+                "hashed_share": hashed}
+
+    def _say_served(self, phase, row):
+        dec, gate = row, row["gate"]
+        self.say(f"{phase} serve: {LM_REQUESTS} requests on {LM_ENGINE.max_batch} slots "
+                 f"(rids {row['late_admits']} admitted mid-flight), {row['tokens']} tokens in "
+                 f"{row['serve_s']:.3f} s = {row['tokens_per_s']:.1f} tokens/s; prefills (CUDA "
+                 "events) " + ", ".join(f"{v:.2f}" for v in row["prefill_ms"]) + " ms; decode per "
+                 f"step median {dec['decode_ms_median']:.2f} ms (min {dec['decode_ms_min']:.2f}, "
+                 f"max {dec['decode_ms_max']:.2f}) over {dec['decode_steps']} steps; launches "
+                 f"{row['launches']}; {row['gated_share']:.3f} of the emissions cleared the gate; "
+                 f"serve peak {row['serve_peak_bytes'] / 1e9:.2f} GB")
+        self.say(f"{phase} gate: bayes_decide at the engine's shape (M, B, K) = "
+                 f"{tuple(gate['shape'])}, {gate['n_bits']} bits: {gate['ms']:.5f} ms/launch on "
                  f"the device, {gate['call_ms']:.4f} ms per back-to-back call, bound "
-                 f"{bound:.6f} ms ({by}); equal to its plain version at all {steps} steps")
-        del engine, params, rec
-        torch.cuda.empty_cache()
+                 f"{gate['bound_ms']:.6f} ms ({gate['bound_by']}); equal to its plain version at "
+                 f"all {gate['launches']} steps")
 
     def _lm_cut(self, report):
-        """phi3 at full width, depth cut: weights made on the card, copied to the
-        CPU; greedy on the CPU, the same tokens forced on the card."""
+        """phi3 at full width, depth cut to LM_CUT_LAYERS, card against CPU."""
         cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_CUT_LAYERS)
+        row = report["cut"] = self._card_vs_cpu(f"{LM_ARCH} x{LM_CUT_LAYERS}", cfg)
+        self.say(f"lm_serve {LM_ARCH} at full width, {LM_CUT_LAYERS} layers, card against CPU: "
+                 f"logits max abs diff per step {[round(e, 4) for e in row['max_abs_diff']]}; "
+                 f"card greedy = CPU greedy {row['greedy_agree']}/{row['greedy_of']}; gate on the "
+                 f"CPU's logits equal on both (candidate posteriors differ by up to "
+                 f"{row['gate_p_max_ulps']} ulp)")
+
+    def _card_vs_cpu(self, what, cfg, steps=8, dtype=torch.bfloat16):
+        """Weights made on the card (cast to float32 if ``dtype`` asks), copied to the CPU; a
+        prefill of 8 tokens and ``steps`` greedy decode steps on the CPU, the
+        same tokens forced on the card; logits within LM_WIDE_TOL (a recurrent
+        arch LM_RECURRENT_REL; float32 weights LM_F32_REL), the gate on the
+        CPU's logits equal."""
         card = api.init(cfg, prng.PRNGKey(0), device="cuda")
+        if dtype == torch.float32:       # every leaf; bf16 runs keep the float32 leaves
+            card = card.float()
         cpu = copy.deepcopy(card).to("cpu")
-        toks, _ = _lm_batch(cfg, "cpu", seq=8)
+        toks, extra = _lm_batch(cfg, "cpu", seq=8)
+        n = 0 if extra is None or cfg.frontend == "frame" else extra.shape[1]
         logits = {"cpu": [], "cuda": []}
+        forced = []
         with torch.inference_mode():
-            lp, st = api.prefill(cpu, cfg, {"tokens": toks}, 32)
-            forced = [torch.argmax(lp, -1)]
-            logits["cpu"].append(lp)
-            for t in range(8):
-                lp, st = api.decode(cpu, cfg, forced[-1], st, toks.shape[1] + t)
-                logits["cpu"].append(lp)
-                forced.append(torch.argmax(lp, -1))
-            lc, sc = api.prefill(card, cfg, {"tokens": toks.cuda()}, 32)
-            logits["cuda"].append(lc)
-            for t in range(8):
-                lc, sc = api.decode(card, cfg, forced[t].cuda(), sc, toks.shape[1] + t)
-                logits["cuda"].append(lc)
-        errs = [_close(f"{LM_ARCH} x{LM_CUT_LAYERS} layers step {i}", a, b, LM_WIDE_TOL)
+            for dev, model in (("cpu", cpu), ("cuda", card)):
+                e = None if extra is None else extra.to(dev)
+                lg, st = api.prefill(model, cfg, _batch_of(toks.to(dev), e), 32 + n)
+                logits[dev].append(lg)
+                for t in range(steps):
+                    if dev == "cpu":
+                        forced.append(torch.argmax(lg, -1))
+                    lg, st = api.decode(model, cfg, forced[t].to(dev), st, toks.shape[1] + n + t)
+                    logits[dev].append(lg)
+        forced.append(torch.argmax(logits["cpu"][-1], -1))
+        tol = LM_F32_REL if dtype == torch.float32 else _tol(cfg, LM_WIDE_TOL)
+        errs = [_close(f"{what} step {i}", a, b, tol)
                 for i, (a, b) in enumerate(zip(logits["cuda"], logits["cpu"]))]
+        rel = [float((a.cpu() - b).norm() / b.norm()) for a, b in zip(logits["cuda"], logits["cpu"])]
         agree = sum(int((torch.argmax(a.cpu(), -1) == b).sum())
                     for a, b in zip(logits["cuda"], forced))
         keys = [prng.fold_in(prng.PRNGKey(1), i) for i in range(len(logits["cpu"]))]
-        p_ulps = _gate_same(f"{LM_ARCH} x{LM_CUT_LAYERS}", LM_ENGINE, keys, logits["cpu"])
-        report["cut"] = {"layers": LM_CUT_LAYERS, "max_abs_diff": errs,
-                         "greedy_agree": agree, "greedy_of": len(forced) * toks.shape[0],
-                         "gate_p_max_ulps": p_ulps}
-        self.say(f"lm_serve {LM_ARCH} at full width, {LM_CUT_LAYERS} layers, card against CPU: "
-                 f"logits max abs diff per step {[round(e, 4) for e in errs]}; card greedy = CPU "
-                 f"greedy {agree}/{len(forced) * toks.shape[0]}; gate on the CPU's logits equal on "
-                 f"both (candidate posteriors differ by up to {p_ulps} ulp)")
+        p_ulps = _gate_same(what, LM_ENGINE, keys, logits["cpu"])
         del card, cpu
-        torch.cuda.empty_cache()
+        _free_card()
+        return {"layers": cfg.num_layers, "dtype": str(dtype)[6:], "max_abs_diff": errs,
+                "relative": rel, "greedy_agree": agree,
+                "greedy_of": len(forced) * toks.shape[0], "gate_p_max_ulps": p_ulps}
 
-    def _lm_smoke(self, report):
-        rows = report["smoke"] = {}
-        for arch in LM_ARCHS:
+    def _smoke_card_vs_cpu(self, phase, archs):
+        """Each arch at its smoke config, made on the card and copied to the CPU:
+        forward, prefill and decode on both, the gate on the CPU's logits; the
+        MoE archs' routing compared first (``_route_agreement``), the logits on
+        the rows that route alike."""
+        rows = {}
+        for arch in archs:
             cfg = get_smoke_config(arch)
             card = api.init(cfg, prng.PRNGKey(0), device="cuda")
             cpu = copy.deepcopy(card).to("cpu")
             toks, extra = _lm_batch(cfg, "cpu")
-            n_extra = 0 if extra is None else extra.shape[1]
-            out = {}
+            n_extra = 0 if extra is None or cfg.frontend == "frame" else extra.shape[1]
+            out, routes = {}, {}
             with torch.inference_mode():
                 for dev, model in (("cpu", cpu), ("cuda", card)):
                     t, e = toks.to(dev), None if extra is None else extra.to(dev)
-                    fw, _ = transformer.forward(model, cfg, t, e)
-                    batch = {"tokens": t[:, :-1]} | ({} if e is None else {"extra_embeds": e})
-                    lp, st = api.prefill(model, cfg, batch, 16 + n_extra)
-                    ld, _ = api.decode(model, cfg, t[:, -1], st, t.shape[1] - 1 + n_extra)
-                    out[dev] = (fw, lp, ld)
-            errs = {name: _close(f"{arch} {name}", a, b, tol) for name, a, b, tol in zip(
-                ("forward", "prefill", "decode"), out["cuda"], out["cpu"],
-                (LM_PREFILL_TOL, LM_PREFILL_TOL, LM_DECODE_TOL))}
+                    with _Routes() as r:
+                        fw = _forward(model, cfg, t, e)
+                        lp, st = api.prefill(model, cfg, _batch_of(t[:, :-1], e), 16 + n_extra)
+                        ld, _ = api.decode(model, cfg, t[:, -1], st, t.shape[1] - 1 + n_extra)
+                    out[dev], routes[dev] = (fw, lp, ld), r.calls
+            held = {"forward": torch.arange(2), "prefill": torch.arange(2)}
+            errs = {}
+            if cfg.moe:
+                k = len(routes["cpu"]) // 3
+                for part, calls in (("forward", range(k)), ("prefill", range(k, 3 * k))):
+                    cpu_calls = [routes["cpu"][i] for i in calls]
+                    card_calls = [routes["cuda"][i] for i in calls]
+                    if part == "prefill":     # per layer, the prefill's tokens then the decode's
+                        cpu_calls = [_join_calls(cpu_calls[i], cpu_calls[i + k], 2) for i in range(k)]
+                        card_calls = [_join_calls(card_calls[i], card_calls[i + k], 2)
+                                      for i in range(k)]
+                    held[part], errs[f"routing_{part}"] = _route_agreement(
+                        cfg, 2, [(a[0], a[1], b[1]) for a, b in zip(cpu_calls, card_calls)])
+            for name, a, b, tol in zip(("forward", "prefill", "decode"), out["cuda"], out["cpu"],
+                                       (LM_PREFILL_TOL, LM_PREFILL_TOL, LM_DECODE_TOL)):
+                r = held["forward" if name == "forward" else "prefill"]
+                errs[name] = _close(f"{arch} {name}", a[r.to(a.device)], b[r], tol)
             keys = [prng.fold_in(prng.PRNGKey(2), i) for i in range(2)]
             errs["gate_p_max_ulps"] = _gate_same(arch, LM_ENGINE, keys, list(out["cpu"][1:]))
             rows[arch] = errs
-            self.say(f"lm_serve {arch} (smoke) card against CPU: {errs}")
+            self.say(f"{phase} {arch} (smoke) card against CPU: {errs}")
             del card, cpu
+        return rows
 
     def _lm_launcher(self, report):
         argv = ["--arch", LM_ARCH, "--requests", "4", "--new-tokens", "8", "--stochastic-gate"]
@@ -2023,6 +2258,163 @@ class Smoke:
         self.say(f"lm_serve launch.serve {' '.join(argv)}: {secs:.1f} s with the init, launches "
                  f"{launches}; serve_lm on the card against the CPU: {held}/{total} steps held "
                  f"(tokens equal: {report['serve_lm']['tokens_equal']})")
+
+    # ---------------------------------------------------- the other block kinds
+    def lm_blocks(self):
+        """The block kinds of queue 1 item 2 on the card: recurrentgemma-2b and
+        xlstm-350m at their published configs served through ServeEngine with
+        the stochastic gate; seamless at its published config through api;
+        llama4 and deepseek at full width, depth cut (with the sort dispatch
+        against the dense impl and deepseek's MTP fusion); card against CPU."""
+        report = self.report["lm_blocks"] = {}
+        for arch in BLOCKS_SERVED:
+            self._blocks_served(report, arch)
+        self._blocks_encdec(report)
+        for arch in BLOCKS_MOE_CUTS:
+            self._blocks_moe(report, arch)
+        cut = report["card_vs_cpu"] = {}
+        for arch, kw, dtype in BLOCKS_CPU_CUTS:
+            cfg = dataclasses.replace(get_config(arch), **kw)
+            what = f"{arch} x{cfg.num_layers} {str(dtype)[6:]}"
+            row = cut[what] = self._card_vs_cpu(what, cfg, dtype=dtype)
+            self.say(f"lm_blocks {what} at full width, card against CPU: logits max abs diff per "
+                     f"step {[round(e, 4) for e in row['max_abs_diff']]}, relative "
+                     f"{max(row['relative']):.2e} at most; greedy {row['greedy_agree']}/"
+                     f"{row['greedy_of']}; gate equal")
+        report["smoke"] = self._smoke_card_vs_cpu("lm_blocks", BLOCKS_SMOKE)
+
+    def _blocks_served(self, report, arch):
+        cfg = get_config(arch)
+        params, init = _init_on_card(cfg)
+        consistency = _consistency(params, cfg)
+        row = report[arch] = {"layers": cfg.num_layers, "reduced": None, **init,
+                              "consistency_max_abs_diff": consistency,
+                              **self._serve(cfg, params)}
+        self.say(f"lm_blocks {arch} (full config, {cfg.num_layers} layers, {init['params']:,} "
+                 f"params, {init['param_bytes'] / 1e9:.2f} GB): init {init['init_s']:.1f} s, peak "
+                 f"{init['init_peak_bytes'] / 1e9:.2f} GB; prefill vs forward max diff "
+                 f"{consistency['prefill']:.4f}, decode {consistency['decode']:.4f}")
+        self._say_served(f"lm_blocks {arch}", row)
+        del params
+        _free_card()
+
+    def _blocks_encdec(self, report):
+        """seamless: a prefill of frames and tokens, then greedy decode steps."""
+        cfg = get_config(BLOCKS_ENCDEC)
+        params, init = _init_on_card(cfg)
+        consistency = _consistency(params, cfg)
+        toks, frames = _lm_batch(cfg, "cuda")
+        ms = []
+        with torch.inference_mode():
+            def timed(fn, *args):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*args)
+                e1.record()
+                ms.append((e0, e1))
+                return out
+            lg, st = timed(api.prefill, params, cfg, _batch_of(toks, frames), 32)
+            for t in range(BLOCKS_DECODE_STEPS):
+                lg, st = timed(api.decode, params, cfg, torch.argmax(lg, -1), st, toks.shape[1] + t)
+                if tuple(lg.shape) != (toks.shape[0], layers.pad_vocab(cfg.vocab_size)) or \
+                        not bool(torch.isfinite(lg).all()):
+                    raise AssertionError(f"seamless decode step {t}: logits {tuple(lg.shape)}")
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in ms]
+        dec = sorted(ms[1:])
+        row = report[BLOCKS_ENCDEC] = {
+            "layers": [cfg.enc_layers, cfg.dec_layers], "reduced": None, **init,
+            "serve_peak_bytes": torch.cuda.max_memory_allocated(),
+            "consistency_max_abs_diff": consistency, "frames": list(frames.shape),
+            "prefill_ms": ms[0], "decode_ms_median": dec[len(dec) // 2], "decode_ms_min": dec[0],
+            "decode_ms_max": dec[-1]}
+        self.say(f"lm_blocks {BLOCKS_ENCDEC} (full config, {cfg.enc_layers} + {cfg.dec_layers} "
+                 f"layers, {init['params']:,} params): init {init['init_s']:.1f} s, peak "
+                 f"{init['init_peak_bytes'] / 1e9:.2f} GB; prefill vs forward {consistency}; "
+                 f"prefill of {tuple(frames.shape[:2])} frames + {toks.shape[1]} tokens "
+                 f"{ms[0]:.2f} ms, decode per step median {row['decode_ms_median']:.2f} ms "
+                 f"(min {dec[0]:.2f}, max {dec[-1]:.2f}) over {len(dec)} steps")
+        del params, st
+        _free_card()
+
+    def _blocks_moe(self, report, arch):
+        """An MoE arch at full width, depth cut: init, decode after prefill against
+        the teacher-forced forward (routing compared first), the sort dispatch
+        against the dense impl on its first MoE layer, deepseek's MTP fusion."""
+        cut = BLOCKS_MOE_CUTS[arch]
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        params, init = _init_on_card(cfg)
+        with _Routes() as routes:
+            consistency = _consistency(params, cfg, routes)
+        row = report[arch] = {"layers": cfg.num_layers, **init,
+                              "reduced": {k: f"{v} (from {getattr(get_config(arch), k)}): the "
+                                          f"whole config does not fit one 80 GB card"
+                                          for k, v in cut.items()},
+                              "consistency_max_abs_diff": consistency}
+        row["dispatch"] = self._moe_dispatch(cfg, params["blocks"][0][0]["moe"])
+        if cfg.mtp_heads:
+            row["mtp_fusion"] = self._mtp_fusion(cfg, params)
+        self.say(f"lm_blocks {arch} (full width, {cfg.num_layers} layers, {init['params']:,} "
+                 f"params, {init['param_bytes'] / 1e9:.2f} GB): init {init['init_s']:.1f} s, peak "
+                 f"{init['init_peak_bytes'] / 1e9:.2f} GB; prefill vs forward {consistency}; sort "
+                 f"dispatch vs dense {row['dispatch']}" + (
+                     f"; MTP fusion {row['mtp_fusion']}" if cfg.mtp_heads else ""))
+        del params
+        _free_card()
+
+    def _moe_dispatch(self, cfg, layer):
+        """The sort dispatch at a capacity no expert can overflow against the
+        dense all-experts impl, on one layer's own weights (2 x 12 tokens)."""
+        e = cfg.moe
+        nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+            e, capacity_factor=float(e.num_experts)))         # cap = k T
+        dense = dataclasses.replace(nodrop, moe=dataclasses.replace(nodrop.moe, impl="dense"))
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        x = torch.randn((2, 12, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+        ms = {}
+        with torch.inference_mode(), _Routes() as routes:
+            outs = []
+            for name, c in (("sort", nodrop), ("dense", dense)):
+                outs.append(moe.moe_apply(layer, x, c)[0])
+                ms[name] = _event_ms(lambda c=c: moe.moe_apply(layer, x, c), 5)
+        if not torch.equal(routes.calls[0][1], routes.calls[1][1]):
+            raise AssertionError(f"{cfg.name}: the two impls route differently")
+        err = _close(f"{cfg.name} sort dispatch vs dense", outs[0], outs[1], MOE_DISPATCH_TOL)
+        return {"max_abs_diff": err, "sort_ms": ms["sort"], "dense_ms": ms["dense"]}
+
+    def _mtp_fusion(self, cfg, params):
+        """tests/serve/test_mtp_fusion.py at full width: the main head's and the
+        MTP head's posteriors of the same token fused through the stochastic
+        gate, one bayes_decide launch (counts reset just before, read just
+        after), held equal to its plain version."""
+        toks, _ = _lm_batch(cfg, "cuda")
+        with torch.inference_mode():
+            h, _ = transformer.forward(params, cfg, toks, return_hidden=True)
+            main = (h[:, -2] @ params["unembed"]).float()
+            h2 = transformer.mtp_hidden(params, cfg, h[:, -3:-2], toks[:, -2:-1])
+            mtp = (h2[:, 0] @ params["unembed"]).float()
+        sources = torch.stack([main, mtp])
+        key = prng.PRNGKey(5)
+        torch.cuda.synchronize()
+        _reset_launches()
+        token, conf = bayes_head.fuse_posteriors_stochastic(key, sources, top_k=8, n_bits=MTP_BITS,
+                                                            device="cuda")
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _launches().items() if v}
+        if launches != {"bayes_decide": 1}:
+            raise AssertionError(f"MTP fusion launches {launches}")
+        cand, p = bayes_head._candidates(sources, 8, "cuda")
+        best, counts = bayes_decide(key, p, MTP_BITS, device="cuda")
+        pbest, pcounts = bayes_decide(key, p.cpu(), MTP_BITS, device="cpu")
+        if not (torch.equal(best.cpu(), pbest) and torch.equal(counts.cpu(), pcounts)):
+            raise AssertionError("MTP fusion: bayes_decide differs from its plain version")
+        if not torch.equal(torch.gather(cand, -1, best[:, None].long())[:, 0], token):
+            raise AssertionError("MTP fusion: the token is not the kernel's decision")
+        row = self._decide_timing(key, p, MTP_BITS)
+        row.update(launches=1, tokens=token.tolist(), confidence=conf.tolist(),
+                   main_vs_mtp_top1_equal=(torch.argmax(main, -1) == torch.argmax(mtp, -1)).tolist())
+        self.mtp_gate = row
+        return row
 
     def operators(self):
         self.op_err = {"sne_encode": 0, "pand_popcount": 0, "bayes_decide": 0, "fusion_map": 0.0}
@@ -2733,7 +3125,7 @@ def main() -> int:
     s.phase("device", s.device)
     run("build")
     for name in ("kernels", "main_path", "timing", "binary_timing", "drain_trace", "router",
-                 "paper_layer", "lm_serve", "operators"):
+                 "paper_layer", "lm_serve", "lm_blocks", "operators"):
         run(name, "build")
     run("operator_timing", "build", "operators")
     run("unfused_kernels", "build")
@@ -2788,9 +3180,13 @@ def main() -> int:
             "full_ms": full["ms"], "full_call_ms": full["call_ms"],
             "full_bound_ms": full["bound_ms"],
         }
-        if name == "bayes_decide":   # at the LM engine's gate (lm_serve)
+        if name == "bayes_decide":   # at the LM engine's gate (lm_serve) and the MTP fusion
             entry.update(lm_gate_ms=s.lm_gate["ms"], lm_gate_bound_ms=s.lm_gate["bound_ms"],
-                         lm_gate_launches=s.lm_gate["launches"])
+                         lm_gate_launches=s.lm_gate["launches"],
+                         lm_blocks_gate_launches={a: s.report["lm_blocks"][a]["gate"]["launches"]
+                                                  for a in BLOCKS_SERVED},
+                         mtp_gate_ms=s.mtp_gate["ms"], mtp_gate_bound_ms=s.mtp_gate["bound_ms"],
+                         mtp_gate_launches=s.mtp_gate["launches"])
         if name == "fusion_map":
             entry["composed_ms"] = line["composed_ms"]
             entry["full_composed_ms"] = full["composed_ms"]

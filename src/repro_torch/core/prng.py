@@ -217,6 +217,23 @@ def device_uniform(keys, shape=(), *, device="cuda", partitionable: bool = True)
     return _unit_floats(device_bits(keys, shape, device=device, partitionable=partitionable))
 
 
+def device_uniform_range(keys, shape, minval: float, maxval: float, *, device="cuda",
+                         partitionable: bool = True) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``, bit for bit.
+
+    The reference's compiled draw is ``max(lo, u * (hi - lo) + lo)`` with the
+    multiply-add contracted into one FMA; the float32 product is exact in
+    float64 and so is the sum (it needs at most 48 bits when ``|lo|, |hi| <=
+    1``), so one rounding of the float64 result is that FMA on every device.
+    """
+    if max(abs(minval), abs(maxval)) > 1.0:
+        raise ValueError("the float64 emulation of the FMA is exact for |bounds| <= 1 only")
+    u = device_uniform(keys, shape, device=device, partitionable=partitionable)
+    lo = torch.tensor(np.float32(minval), device=u.device)
+    span = torch.tensor(np.float32(maxval), device=u.device) - lo
+    return torch.maximum(lo, (u.double() * span.double() + lo.double()).float())
+
+
 # XLA's float32 inverse error function (Giles' approximation), coefficients
 # of the w < 5 and w >= 5 branches, highest degree first
 _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,

@@ -19,8 +19,10 @@ Entry points (the reference's, with ``device=`` on the initializers):
   prefill(params, cfg, tokens, t_cache, extra_embeds)  -> (last_logits, state)
   decode_step(params, cfg, token, state, pos)          -> (logits, state)
 
-Block kinds ``mla``, ``rec``, ``mlstm`` and ``slstm``, MoE feed-forwards,
-deepseek's dense prefix and the MTP head raise ``NotImplementedError``.
+Every block kind of the reference: the attention kinds, ``mla``, ``rec``
+(RG-LRU), ``mlstm`` and ``slstm`` (which have no ``norm2``/MLP), MoE
+feed-forwards, deepseek's dense MLA prefix (``attn_dense_prefix``) and its
+MTP head, whose term ``loss_fn`` adds.
 """
 
 from __future__ import annotations
@@ -33,18 +35,13 @@ from torch.utils import checkpoint
 
 from repro_torch.core import prng
 from repro_torch.distributed import context as dctx
-from repro_torch.models import layers
+from repro_torch.models import layers, mla, moe, rglru, xlstm
 
 Params = Dict[str, Any]
 
 ATTN_KINDS = ("attn", "attn_local", "attn_chunk", "attn_global")
 _MASK_KIND = {"attn": "causal", "attn_local": "local", "attn_chunk": "chunk",
               "attn_global": "causal"}
-NEXT_SLICE_TODO = "ROADMAP queue 1 item 2 (MoE, MLA, RG-LRU, xLSTM and enc-dec)"
-
-
-def _unported(what: str):
-    return NotImplementedError(f"{what} is not ported yet: {NEXT_SLICE_TODO}")
 
 
 # --------------------------------------------------------------------------- params
@@ -109,15 +106,24 @@ def block_init(key, cfg, kind: str, *, dense_ff: int | None = None, device="cuda
     p: Params = {"norm1": layers.norm_init(d, cfg.norm, device=device)}
     if kind in ATTN_KINDS:
         p["attn"] = layers.gqa_init(ks[0], cfg, device=device)
-    elif kind in ("mla", "rec", "mlstm", "slstm"):
-        raise _unported(f"block kind {kind!r}")
+    elif kind == "mla":
+        p["attn"] = mla.mla_init(ks[0], cfg, device=device)
+    elif kind == "rec":
+        p["rec"] = rglru.rglru_init(ks[0], cfg, device=device)
+    elif kind == "mlstm":
+        p["mix"] = xlstm.mlstm_init(ks[0], cfg, device=device)
+        return p  # mLSTM block has no separate MLP
+    elif kind == "slstm":
+        p["mix"] = xlstm.slstm_init(ks[0], cfg, device=device)
+        return p
     else:
         raise ValueError(kind)
     p["norm2"] = layers.norm_init(d, cfg.norm, device=device)
     if _has_moe(cfg, kind) and dense_ff is None:
-        raise _unported(f"the MoE feed-forward of {cfg.name}")
-    ff = dense_ff if dense_ff is not None else cfg.d_ff
-    p["mlp"] = layers.mlp_init(ks[1], d, ff, cfg.mlp, device=device)
+        p["moe"] = moe.moe_init(ks[1], cfg, device=device)
+    else:
+        ff = dense_ff if dense_ff is not None else cfg.d_ff
+        p["mlp"] = layers.mlp_init(ks[1], d, ff, cfg.mlp, device=device)
     return p
 
 
@@ -142,8 +148,17 @@ def block_apply(
             params["attn"], h, cfg, kind=_MASK_KIND[kind], positions=positions,
             rope=(kind != "attn_global"), cache=state, cache_pos=cache_pos,
         )
-    elif kind in ("mla", "rec", "mlstm", "slstm"):
-        raise _unported(f"block kind {kind!r}")
+    elif kind == "mla":
+        mix, new_state = mla.mla_apply(params["attn"], h, cfg, positions=positions,
+                                       cache=state, cache_pos=cache_pos)
+    elif kind == "rec":
+        mix, new_state = rglru.rglru_apply(params["rec"], h, cfg, state)
+    elif kind in ("mlstm", "slstm"):
+        apply = xlstm.mlstm_apply if kind == "mlstm" else xlstm.slstm_apply
+        mix, new_state = apply(params["mix"], h, cfg, state)
+        if sp:
+            mix = dctx.constrain(mix, "batch", "model", None)
+        return x + mix, new_state, aux
     else:
         raise ValueError(kind)
     if sp:
@@ -153,8 +168,9 @@ def block_apply(
     if sp:
         h2 = dctx.constrain(h2, "batch", None, None)
     if "moe" in params:
-        raise _unported("the MoE feed-forward")
-    ff_out = layers.apply_mlp(params["mlp"], h2, cfg.mlp)
+        ff_out, aux = moe.moe_apply(params["moe"], h2, cfg)
+    else:
+        ff_out = layers.apply_mlp(params["mlp"], h2, cfg.mlp)
     if sp:
         ff_out = dctx.constrain(ff_out, "batch", "model", None)
     return x + ff_out, new_state, aux
@@ -166,8 +182,14 @@ def block_init_state(cfg, kind: str, batch: int, t_cache: int, *, device="cuda")
         tl = layers.cache_len_for_kind(_MASK_KIND[kind], t_cache, cfg.window, cfg.chunk)
         return layers.init_kv_cache(batch, tl, cfg.num_kv_heads, cfg.resolved_head_dim,
                                     device=device)
-    if kind in ("mla", "rec", "mlstm", "slstm"):
-        raise _unported(f"block kind {kind!r}")
+    if kind == "mla":
+        return mla.mla_init_cache(batch, t_cache, cfg, device=device)
+    if kind == "rec":
+        return rglru.rglru_init_state(batch, cfg, device=device)
+    if kind == "mlstm":
+        return xlstm.mlstm_init_state(batch, cfg, device=device)
+    if kind == "slstm":
+        return xlstm.slstm_init_state(batch, cfg, device=device)
     raise ValueError(kind)
 
 
@@ -183,16 +205,12 @@ def _layer_plan(cfg) -> Tuple[Tuple[str, ...], int]:
 
 
 def _prefix_kind(k: str) -> str:
-    if k == "attn_dense_prefix":
-        raise _unported("deepseek's dense MLA prefix")
-    return k
+    return "mla" if k == "attn_dense_prefix" else k
 
 
 def init_params(cfg, key, *, device="cuda") -> Model:
     """The reference's ``init_params`` from the same key: the same draws
     (``prng`` splits and normals), each leaf a tensor on ``device``."""
-    if cfg.mtp_heads:
-        raise _unported(f"the MTP head of {cfg.name}")
     prefix, reps = _layer_plan(cfg)
     ks = prng.split(key, 5)
     vocab = layers.pad_vocab(cfg.vocab_size)
@@ -203,8 +221,10 @@ def init_params(cfg, key, *, device="cuda") -> Model:
     if not cfg.tie_embeddings:
         p["unembed"] = layers.dense_init(ks[1], cfg.d_model, vocab, device=device)
     pk = prng.split(ks[2], max(len(prefix), 1))
-    p["prefix"] = [ParamTree(block_init(pk[i], cfg, _prefix_kind(k), device=device))
-                   for i, k in enumerate(prefix)]
+    p["prefix"] = [ParamTree(block_init(
+        pk[i], cfg, _prefix_kind(k), device=device,
+        dense_ff=cfg.dense_d_ff if k == "attn_dense_prefix" else None))
+        for i, k in enumerate(prefix)]
     sk = prng.split(ks[3], reps)
     per_pos = [[] for _ in cfg.pattern]
     for k in sk:
@@ -212,6 +232,12 @@ def init_params(cfg, key, *, device="cuda") -> Model:
         for i, kind in enumerate(cfg.pattern):
             per_pos[i].append(ParamTree(block_init(kk[i], cfg, kind, device=device)))
     p["blocks"] = [nn.ModuleList(blocks) for blocks in per_pos]
+    if cfg.mtp_heads:
+        p["mtp"] = {
+            "proj": layers.dense_init(ks[4], 2 * cfg.d_model, cfg.d_model, device=device),
+            "block": block_init(prng.fold_in(ks[4], 1), cfg, cfg.pattern[0], device=device),
+            "norm": layers.norm_init(cfg.d_model, cfg.norm, device=device),
+        }
     return Model(p, cfg)
 
 
@@ -264,18 +290,39 @@ def forward(
     return h @ _unembed(params, cfg), aux_total
 
 
+def _nll(logits, labels):
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+
+
+def mtp_hidden(params: Params, cfg, h: torch.Tensor, next_tokens: torch.Tensor) -> torch.Tensor:
+    """The MTP head's normed hidden state: ``[h_t ; emb(t+1)]`` projected, one
+    block of ``cfg.pattern[0]``, the head's norm.  Position t predicts t+2."""
+    emb_next = params["embed"][next_tokens]
+    h2 = torch.cat([h, emb_next], dim=-1) @ params["mtp"]["proj"]
+    h2, _, _ = block_apply(params["mtp"]["block"], h2, cfg, cfg.pattern[0],
+                           positions=torch.arange(h2.shape[1], device=h2.device))
+    return layers.apply_norm(params["mtp"]["norm"], h2, cfg.norm)
+
+
 def loss_fn(params: Params, cfg, batch: Dict[str, torch.Tensor]):
-    """Causal LM loss (forward only: gradients come with the training stack)."""
+    """Causal LM loss (+ deepseek's MTP term); forward only: gradients come
+    with the training stack."""
     tokens, labels = batch["tokens"], batch["labels"]
     extra = batch.get("extra_embeds")
     h, aux = forward(params, cfg, tokens, extra, return_hidden=True)
     if extra is not None:
         h = h[:, extra.shape[1]:]          # loss only over text positions
-    logits = (h @ _unembed(params, cfg)).float()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
-    loss = nll.mean()
+    unembed = _unembed(params, cfg)
+    loss = _nll((h @ unembed).float(), labels).mean()
     metrics = {"nll": loss, "aux": aux}
+    if cfg.mtp_heads and "mtp" in params:
+        # multi-token prediction: predict t+2 from [h_t ; emb(t+1)]
+        h2 = mtp_hidden(params, cfg, h[:, :-1], tokens[:, 1:])
+        # position t of h2 predicts token t+2, whose label is labels[t+1]
+        mtp_loss = _nll((h2 @ unembed).float(), labels[:, 1:]).mean()
+        metrics["mtp_nll"] = mtp_loss
+        loss = loss + 0.3 * mtp_loss
     return loss + 0.01 * aux, metrics
 
 

@@ -4,7 +4,10 @@ reference's init.
 
 Configs are equal field for field (``dataclasses.asdict``) with the same
 ``param_count``; meta-device leaves have the reference's shapes and dtypes
-exactly, and nothing is allocated.
+exactly, and nothing is allocated.  deepseek-v3's full init is traced at its
+full width cut to one and two MoE repetitions (tracing its 58 repetitions of
+768 expert draws takes the reference 46 s here); each leaf of a repetition
+has the full config's shape, and the full count follows from the two cuts.
 """
 
 import dataclasses
@@ -22,8 +25,6 @@ from repro_torch import configs as T
 from repro_torch.models import api, convert
 
 LM_ARCHS = [a for a in R.ARCH_IDS if a != "paper-bayes-fusion"]
-SLICE_ARCHS = ["qwen2-72b", "starcoder2-15b", "minitron-4b", "phi3-mini-3.8b", "internvl2-26b"]
-LATER_ARCHS = [a for a in LM_ARCHS if a not in SLICE_ARCHS]
 KEY = np.zeros(2, np.uint32)
 
 
@@ -74,33 +75,46 @@ def _torch_dtype(d):
     return {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}[jnp.dtype(d).type]
 
 
-@pytest.mark.parametrize("arch", SLICE_ARCHS)
-def test_meta_init_matches_eval_shape(arch):
-    """Every leaf of the full config, on ``meta``: the reference's shape and
-    dtype (a stacked blocks leaf is one leaf per repetition here)."""
-    cfg = T.get_config(arch)
-    want = jax.eval_shape(lambda k: japi.init(R.get_config(arch), k), jax.random.PRNGKey(0))
+def _stacked(keystr):
+    return keystr.startswith(("['blocks']", "['enc_blocks']", "['dec_blocks']"))
+
+
+def _meta_matches_eval_shape(cfg, jcfg):
+    """Every leaf on ``meta``: the reference's shape and dtype (a stacked leaf
+    is one leaf per repetition or layer here).  Returns the reference's count."""
+    want = jax.eval_shape(lambda k: japi.init(jcfg, k), jax.random.PRNGKey(0))
     model = api.init(cfg, KEY, device="meta")
     got = dict(model.named_parameters())
     assert all(p.device.type == "meta" for p in got.values())
     seen = 0
     for path, leaf in jtu.tree_leaves_with_path(want):
         ks = jtu.keystr(path)
-        stacked = ks.startswith("['blocks']")
+        stacked = _stacked(ks)
         for r in range(leaf.shape[0]) if stacked else [None]:
             p = got[convert.state_dict_key(ks, r)]
             assert tuple(p.shape) == (leaf.shape[1:] if stacked else leaf.shape), ks
             assert p.dtype == _torch_dtype(leaf.dtype), ks
             seen += 1
     assert seen == len(got)
-    assert api.param_count(model) == sum(int(np.prod(x.shape)) for x in jax.tree.leaves(want))
+    count = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(want))
+    assert api.param_count(model) == count
+    return count
 
 
-@pytest.mark.parametrize("arch", LATER_ARCHS)
-def test_later_archs_construct_and_their_models_raise(arch):
-    """The MoE, MLA, recurrent, xLSTM and audio configs are data and port now;
-    their models come with the next slice and raise, naming it."""
-    cfg = T.get_config(arch)
-    assert cfg.param_count() == R.get_config(arch).param_count()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
-        api.init(cfg, KEY, device="meta")
+@pytest.mark.parametrize("arch", [a for a in LM_ARCHS if a != "deepseek-v3-671b"])
+def test_meta_init_matches_eval_shape(arch):
+    """The full config, every leaf, on ``meta``."""
+    _meta_matches_eval_shape(T.get_config(arch), R.get_config(arch))
+
+
+def test_meta_init_matches_eval_shape_deepseek_at_full_width():
+    """deepseek-v3 at full width, its 3 dense MLA prefix layers and 1 or 2
+    MoE repetitions (MTP head included); the full config's count from them."""
+    arch = "deepseek-v3-671b"
+    counts = [_meta_matches_eval_shape(
+        dataclasses.replace(T.get_config(arch), num_layers=3 + reps),
+        dataclasses.replace(R.get_config(arch), num_layers=3 + reps)) for reps in (1, 2)]
+    full = T.get_config(arch)
+    n_reps = full.num_layers - len(full.prefix_kinds)
+    assert api.param_count(api.init(full, KEY, device="meta")) == \
+        counts[0] + (n_reps - 1) * (counts[1] - counts[0])
