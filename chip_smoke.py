@@ -127,7 +127,38 @@ Phases (any failure makes the script exit non-zero without the result line):
               full width cut to 5 layers, xlstm-350m whole, seamless cut to 2 +
               2 layers, and the five archs' smoke configs, routing first.
               Each model is freed before the next.
-12. operators -- the paper's fusion operators.  Each of ``sne_encode``,
+12. lm_train -- the training stack (AdamW, the data pipeline, checkpoints,
+              ``TrainLoop``, the train launcher and example).  phi3-mini-3.8b at
+              its published config, every layer, random weights from
+              ``PRNGKey(0)`` made on the card, trained 6 steps through
+              ``TrainLoop`` with the launcher's data and optimizer settings
+              (batch 8 x 128, lr 1e-3) and no checkpoint: init seconds, peak
+              memory, every step's loss and grad norm (finite), forward+backward
+              and optimizer ms per step (CUDA events, median of steps 2-5),
+              tokens/s and model FLOPs utilization (6 N tokens at 989 TFLOP/s,
+              the recompute not counted).  Then the in-place restore at that
+              size, into the live state: the params and master after 6 steps
+              saved (30.6 GB; the whole state's 61 GB would pass the machine's
+              disk allowance; stall and write s), a 7th step, the two restored
+              (s, and the card memory it adds: at most one float32 leaf; every
+              tensor's bit sums equal to the saved ones) and the step replayed
+              (the same loss).  Then at full width cut to 2 layers:
+              one ``make_train_step`` on the card against the CPU (weights
+              copied from the card; loss, every new param, the master, m and
+              v within the stated tolerances), 2 microbatches against 1 on the
+              card (the float32 promotion of the reference), and the checkpoint
+              cycle under ``torch.use_deterministic_algorithms`` (a loop stopped
+              at step 2 and resumed to 4 equal bit for bit to an uninterrupted
+              one; the save's stall, the async write and the restore in
+              seconds and the card memory it adds, disk and memory free).  Then the ten archs' smoke
+              configs, one train step card against CPU with MoE routing
+              compared first (where a near-tie flips, the step again on the
+              rows that route alike, and every check held there; should those
+              differ too, the loss, m and v and every param within 2 lr); ``repro_torch.launch.train --smoke`` and
+              ``examples.train_lm.run`` card against CPU (every step's loss),
+              and the example on the card at its script's 60 steps, whose loss
+              must fall.
+13. operators -- the paper's fusion operators.  Each of ``sne_encode``,
               ``pand_popcount``, ``bayes_decide`` and ``fusion_map`` against
               its plain torch version on the card (bit for bit; fusion_map
               within atol 2e-6, rtol 1e-5) at M 1..3, K 1, 2, 8, 16 and 33,
@@ -144,7 +175,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               decision (4096 decisions, M=K=2, 128 bits: fused, composed,
               ``bayes_decide_packed``); and the ``obstacle_fusion`` example
               flow at 64x64 (``examples.obstacle_fusion.run``).
-13. operator_timing -- device time per launch (``torch.profiler``, the L2
+14. operator_timing -- device time per launch (``torch.profiler``, the L2
               flushed before each launch) and per back-to-back call (CUDA
               events) of the four kernels at the full batch and at a
               65,536-pixel slice of it, beside their plain
@@ -157,7 +188,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               bound counts the shared body's least integer work per entropy
               word, logic on the 64 ALU lanes of an SM and multiplies and
               adds free to use all 128, as ``net_sweep``'s.
-14. unfused_kernels -- the ``node_mux`` kernels against their plain versions
+15. unfused_kernels -- the ``node_mux`` kernels against their plain versions
               on the card, bit for bit: gather and rows at 0 to 6 parents
               (per-row tables and shared rows holding thresholds 0, 128, 256
               and the half steps) and at 7 and 8 (the gather on the
@@ -166,7 +197,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               (per-row and shared tables; 6 binary parents at k = 2) and
               its wide path at 9 planes and at 17 parents, k-ary roots, and
               counter origins that wrap 2**32.
-15. unfused_path -- the unfused lowering through its entry points at
+16. unfused_path -- the unfused lowering through its entry points at
               n_bits=4096, B=1024, counts reset just before and read just
               after: 7 scenarios x {``fused=False``, ``share_entropy=True``},
               ``mux_mode='rows'`` on the 4 binary scenarios and
@@ -177,12 +208,12 @@ Phases (any failure makes the script exit non-zero without the result line):
               Then the unfused, shared-entropy and fused posteriors against the
               enumeration oracle: per distinct evidence vector, the posterior
               pooled over its frames within 4.5 sqrt(p (1-p) / accepted).
-16. wide_path -- the wide network through ``compile_network`` fused,
+17. wide_path -- the wide network through ``compile_network`` fused,
               ``fused=False``, ``share_entropy=True`` and ``mux_mode='rows'`` at
               n_bits=4096, B=1024, each ``decide`` bit-equal to
               ``device="cpu"``; counts reset just before and read just after,
               and each wide kernel must have launched.
-17. unfused_timing -- device time per launch and per back-to-back call of the
+18. unfused_timing -- device time per launch and per back-to-back call of the
               node_mux kernels at B=1024 and B=65,536 (n_bits=4096; the wide
               paths at B=256) beside their plain versions and bounds; launches
               of each kernel per unfused ``run`` of each scenario; wall time per
@@ -207,16 +238,22 @@ import copy
 import dataclasses
 import gc
 import json
+import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tests"))       # torch_wide_net: the wide network
+# cuBLAS's workspace configuration that torch.use_deterministic_algorithms
+# asks for (lm_train's resume check); read once, when cuBLAS first starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -233,14 +270,14 @@ from repro_torch.bayesnet import (  # noqa: E402
     sweep_plan,
 )
 from repro_torch.bayesnet.reliability import TERMINAL_STATUSES  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.configs.paper_bayes import full_config  # noqa: E402
 from repro_torch.core import bitops, prng, rng  # noqa: E402
 from repro_torch.core import correlation, fusion, graph, inference, latency, logic, sne  # noqa: E402
 from repro_torch.core import device as memristor  # noqa: E402
 from repro_torch.data import detection  # noqa: E402
 from repro_torch.examples import obstacle_fusion, quickstart, route_planning, scene_graph  # noqa: E402
-from repro_torch.examples import serve_lm  # noqa: E402
+from repro_torch.examples import serve_lm, train_lm  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     backend,
     bayes_decide,
@@ -270,6 +307,11 @@ from repro_torch.kernels.sne_encode.ref import sne_encode_ref  # noqa: E402
 from repro_torch.distributed.fault import LaunchFaultInjector  # noqa: E402
 from repro_torch.obs import PAPER_BUDGET_MS  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.data import DataConfig, batch_at_step  # noqa: E402
+from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.train import TrainConfig, TrainLoop, make_train_step  # noqa: E402
 from repro_torch.models import api, bayes_head, encdec, layers, moe, transformer  # noqa: E402
 from repro_torch.serve import BayesRouter, EngineConfig, Request, RouterPolicy, ServeEngine, tenant_salt  # noqa: E402,E501
 from repro_torch.serve import engine as engine_mod  # noqa: E402
@@ -1138,6 +1180,205 @@ MOE_DISPATCH_TOL = (2e-2, 2e-2)
 # router logit summed in another order can move a near-tie and flip a token's
 # experts; at most this share of the tokens, each at a top-k margin under this
 ROUTE_SHARE, ROUTE_MARGIN = 0.125, 2e-2
+
+
+# the training path (lm_train): phi3-mini-3.8b trained through TrainLoop at its
+# published config, with the launcher's data and optimizer settings
+TRAIN_ARCH = "phi3-mini-3.8b"
+TRAIN_STEPS = 6                       # step ms is the median of steps 2-5
+TRAIN_TIMED = slice(2, TRAIN_STEPS)
+TRAIN_BATCH, TRAIN_SEQ = 8, 128       # the launcher's --global-batch and --seq-len
+BF16_PEAK_FLOPS = 989e12              # H100 SXM dense bf16 (NVIDIA data sheet)
+TRAIN_CUT = dict(num_layers=2)        # card against CPU and the checkpoint cycle: full width
+TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 2, 64
+TRAIN_RESUME_STEPS = 4                # the checkpoint cycle: stop at 2, resume to 4
+TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ = 2, 16
+TRAIN_LAUNCH_STEPS = 20               # launch.train --smoke, card against CPU
+TRAIN_EXAMPLE_STEPS = 6               # examples.train_lm card against CPU (the card alone: 60)
+# one train step, card against CPU: cuBLAS and the CPU's GEMM sum the bf16
+# products in other orders, so the gradients differ by bf16 ulps.  The loss
+# within TRAIN_LOSS_ATOL.  The first AdamW step moves a weight by about lr
+# times the sign of its gradient, so a gradient near zero that rounds to the
+# other sign moves it the other way: the new params within one bf16 ulp but
+# for at most TRAIN_FLIP_SHARE of them, all within 2 lr, and so the float32
+# master; m and v within TRAIN_STATE_REL, the relative Frobenius error over
+# the whole state (v is a square).  phi3 at full width, 2 layers, on an
+# H100: loss 2.1e-4 apart, 0.63 % of the params apart (at most 1.997 lr),
+# m and v 0.011 and 0.015
+TRAIN_LOSS_ATOL = 2e-2
+TRAIN_FLIP_SHARE = 2e-2
+TRAIN_STATE_REL = {"m": 5e-2, "v": 1e-1}
+# launch.train and train_lm, card against CPU: every step's loss within this
+# (the trajectories part by bf16 ulps each step)
+TRAIN_TRAJ_ATOL = 5e-2
+TRAIN_MIN_FREE_BYTES = 14e9           # twice the ~7 GB the checkpoint cycle writes
+# the full-size restore writes the params and the master (8 bytes a parameter,
+# bf16 stored as float32) and holds them on the host while it writes: room for
+# this many times that on the disk and in host memory.  The whole state (16
+# bytes a parameter, 61 GB) passes the 45 GiB a chip machine lets a run write.
+TRAIN_RESTORE_ROOM = 1.1
+BF16_ULP = 2.0 ** -7
+
+
+class _StepTimer:
+    """While active: CUDA events at the start of each train step's loss, and
+    around its optimizer update, and the update's grad norm."""
+
+    def __enter__(self):
+        self.marks, self.norms = [], []
+        self._loss, self._apply = api.loss, adamw.apply
+        rec = self
+
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        def loss(*args, **kw):
+            rec.marks.append([event()])
+            return rec._loss(*args, **kw)
+
+        def apply(*args, **kw):
+            rec.marks[-1].append(event())
+            out = rec._apply(*args, **kw)
+            rec.marks[-1].append(event())
+            rec.norms.append(out[2]["grad_norm"])
+            return out
+        api.loss, adamw.apply = loss, apply
+        return self
+
+    def __exit__(self, *exc):
+        api.loss, adamw.apply = self._loss, self._apply
+
+    def split(self):
+        """Per step: forward+backward ms, optimizer ms, and the period to the
+        next step's start (host time included; None for the last)."""
+        torch.cuda.synchronize()
+        out = []
+        for i, (e0, e1, e2) in enumerate(self.marks):
+            nxt = self.marks[i + 1][0] if i + 1 < len(self.marks) else None
+            out.append({"fwd_bwd_ms": e0.elapsed_time(e1), "opt_ms": e1.elapsed_time(e2),
+                        "period_ms": None if nxt is None else e0.elapsed_time(nxt)})
+        return out
+
+
+def _median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return (xs[(n - 1) // 2] + xs[n // 2]) / 2
+
+
+def _state_of(model, opt):
+    """A train state on the CPU: {name: float32 param}, and m, v, master."""
+    return ({n: p.detach().float().cpu() for n, p in model.named_parameters()},
+            {f: {k: t.cpu() for k, t in getattr(opt, f).items()} for f in ("m", "v", "master")})
+
+
+def _hold_step(what, card, cpu, lr, routed_alike=True):
+    """One train step's results, card against CPU: the loss (TRAIN_LOSS_ATOL),
+    every new param and master value (TRAIN_FLIP_SHARE beyond one bf16 ulp,
+    all within 2 lr), and m and v (TRAIN_STATE_REL over the whole state).
+    Where an MoE token went to another expert on one side (``routed_alike``
+    False), that expert's gradient moves its weights the other way: every
+    value is still held within 2 lr, but not the share beyond one ulp."""
+    (pg, og, mg), (pc, oc, mc) = card, cpu
+    loss_diff = abs(mg["loss"].item() - mc["loss"].item())
+    if not (np.isfinite(mg["loss"].item()) and loss_diff <= TRAIN_LOSS_ATOL):
+        raise AssertionError(f"{what}: loss {mg['loss'].item()} on the card against "
+                             f"{mc['loss'].item()} on the CPU")
+    out = {"loss_card": mg["loss"].item(), "loss_cpu": mc["loss"].item(), "loss_diff": loss_diff,
+           "grad_norm_card": mg["grad_norm"].item(), "grad_norm_cpu": mc["grad_norm"].item()}
+    named = [(n, a.detach(), b.detach()) for (n, a), (_, b)
+             in zip(pg.named_parameters(), pc.named_parameters(), strict=True)]
+    for part, leaves in (("params", named),
+                         ("master", [(k, og.master[k], oc.master[k]) for k in oc.master])):
+        flips = total = 0
+        worst = 0.0
+        for n, a, b in leaves:
+            if a.dtype != b.dtype:
+                raise AssertionError(f"{what}: {n} is {a.dtype} on the card, {b.dtype} on the CPU")
+            a, b = a.float().cpu(), b.float()
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{what}: non-finite {part} {n}")
+            diff = (a - b).abs()
+            flips += int((diff > BF16_ULP * b.abs()).sum())
+            total += diff.numel()
+            over = float((diff - BF16_ULP * b.abs()).max()) / lr
+            worst = max(worst, over)
+            if over > 2 * 1.01:
+                raise AssertionError(f"{what}: {part} {n} {over:.3f} lr beyond one bf16 ulp "
+                                     f"from the CPU's")
+        if routed_alike and flips > TRAIN_FLIP_SHARE * total:
+            raise AssertionError(f"{what}: {flips} of {total} {part} beyond noise")
+        out.update({f"{part}_apart": flips, f"{part}_values": total,
+                    f"{part}_worst_lr": worst})
+    for field, bound in TRAIN_STATE_REL.items():
+        err = ref = 0.0
+        for k, want in getattr(oc, field).items():
+            err += float((getattr(og, field)[k].cpu() - want).square().sum())
+            ref += float(want.square().sum())
+        rel = (err / max(ref, 1e-300)) ** 0.5
+        if rel > bound:
+            raise AssertionError(f"{what}: {field} relative error {rel} beyond {bound}")
+        out[f"{field}_rel"] = rel
+    return out
+
+
+def _bit_sums(tree):
+    """Per tensor of ``(model, {name: tensor})``: the sum of its bit patterns
+    and their sum weighted by position mod 65521, in int64 (exact, and
+    independent of the order of summation), as one CPU tensor.  It tells a
+    restored state from the one saved without a second copy on the card."""
+    model, named = tree
+    sums = []
+    for t in [p.detach() for p in model.parameters()] + list(named.values()):
+        bits = t.reshape(-1).view({2: torch.int16, 4: torch.int32}[t.element_size()])
+        bits = bits.to(torch.int64)
+        w = torch.arange(bits.numel(), device=t.device, dtype=torch.int64).remainder_(65521).add_(1)
+        sums += [bits.sum(), bits.mul_(w).sum()]
+        del bits, w
+    return torch.stack(sums).cpu()
+
+
+def _timed_restore(ckpt, marks):
+    """Wraps ``ckpt.restore``: its seconds and the card memory it adds over
+    what was allocated before it (``restore_s``, ``restore_added_bytes``),
+    and the template's largest tensor as float32 (``restore_leaf_bytes``;
+    the optimizer's leaves have the params' shapes)."""
+    restore = ckpt.restore
+
+    def timed(template, step=None):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = restore(template, step)
+        torch.cuda.synchronize()
+        marks["restore_s"] = time.perf_counter() - t0
+        marks["restore_added_bytes"] = torch.cuda.max_memory_allocated() - before
+        marks["restore_leaf_bytes"] = 4 * max(p.numel() for p in template[0].parameters())
+        return out
+    ckpt.restore = timed
+
+
+def _hold_restore_memory(what, marks):
+    """A restore in place adds at most one float32 leaf (the host array on its
+    way to a bf16 tensor) to the card, plus the allocator's rounding."""
+    if marks["restore_added_bytes"] > marks["restore_leaf_bytes"] + (8 << 20):
+        raise AssertionError(f"{what}: the restore added {marks['restore_added_bytes']} bytes "
+                             f"to the card, beyond one float32 leaf "
+                             f"({marks['restore_leaf_bytes']} bytes)")
+
+
+def _disk_and_memory(path):
+    """Free bytes where ``path`` lies and the host's available memory."""
+    free = shutil.disk_usage(path).free
+    avail = None
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024
+    return {"disk_free_bytes": free, "mem_available_bytes": avail}
 
 
 def _close(what, got, want, tol):
@@ -2416,6 +2657,341 @@ class Smoke:
         self.mtp_gate = row
         return row
 
+    # -------------------------------------------------------- the training path
+    def lm_train(self):
+        """The training stack on the card: phi3-mini-3.8b at its published
+        config trained through TrainLoop, its params and master restored in
+        place into the live state; at its full width cut to 2 layers,
+        one make_train_step card against CPU, microbatches 2 against 1, and
+        the checkpoint cycle; the ten archs' smoke configs, launch.train and
+        examples.train_lm card against CPU."""
+        report = self.report["lm_train"] = {}
+        _free_card()
+        self._train_full(report)
+        _free_card()
+        self._train_cut(report)
+        _free_card()
+        self._train_resume(report)
+        _free_card()
+        self._train_smoke(report)
+        self._train_launchers(report)
+
+    def _train_full(self, report):
+        args, cfg, data_cfg, train_cfg, opt_cfg = train_launcher.setup(
+            ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--global-batch", str(TRAIN_BATCH),
+             "--seq-len", str(TRAIN_SEQ)])
+        with tempfile.TemporaryDirectory(prefix="lm_train_") as ckpt_dir:
+            # ckpt_every beyond the steps: the launcher's steps // 4 would write the
+            # whole state (61 GB) at every step
+            train_cfg = dataclasses.replace(train_cfg, ckpt_every=TRAIN_STEPS + 1,
+                                            ckpt_dir=ckpt_dir)
+            loop = TrainLoop(cfg, data_cfg, train_cfg, opt_cfg, device="cuda")
+            t0 = time.perf_counter()
+            params, opt = loop.init_state(prng.PRNGKey(0))
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            init_peak = torch.cuda.max_memory_allocated()
+            n_params = api.param_count(params)
+            state_bytes = sum(t.numel() * t.element_size() for t in params.parameters()) + sum(
+                t.numel() * 4 for f in ("master", "m", "v") for t in getattr(opt, f).values())
+            with _StepTimer() as timer:
+                t1 = time.perf_counter()
+                params, opt, history = loop.run(prng.PRNGKey(0), params=params, opt_state=opt)
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t1
+            committed = loop.ckpt.available_steps()
+            peak = torch.cuda.max_memory_allocated()
+            restored = report["restore"] = self._train_restore_full(
+                cfg, opt_cfg, data_cfg, params, opt, ckpt_dir)
+        steps = timer.split()
+        norms = [float(g) for g in timer.norms]
+        losses = [h["loss"] for h in history]
+        if len(history) != TRAIN_STEPS or len(steps) != TRAIN_STEPS or committed:
+            raise AssertionError(f"{TRAIN_ARCH}: {len(history)} steps, {len(steps)} timed, "
+                                 f"checkpoints {committed}")
+        if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+            raise AssertionError(f"{TRAIN_ARCH}: losses {losses}, grad norms {norms}")
+        timed = steps[TRAIN_TIMED]
+        fb = _median([s["fwd_bwd_ms"] for s in timed])
+        op = _median([s["opt_ms"] for s in timed])
+        step_ms = _median([s["fwd_bwd_ms"] + s["opt_ms"] for s in timed])
+        period = _median([s["period_ms"] for s in timed if s["period_ms"] is not None])
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        flops = 6 * n_params * tokens
+        row = report[TRAIN_ARCH] = {
+            "layers": cfg.num_layers, "reduced": None, "params": n_params,
+            "state_bytes": state_bytes, "init_s": init_s, "init_peak_bytes": init_peak,
+            "peak_bytes": peak, "run_s": run_s, "losses": losses, "grad_norms": norms,
+            "lr": opt_cfg.lr, "warmup_steps": opt_cfg.warmup_steps, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+            "steps": steps, "fwd_bwd_ms": fb, "opt_ms": op, "step_ms": step_ms,
+            "period_ms": period, "tokens_per_s": tokens / (step_ms / 1e3),
+            "tokens_per_s_period": tokens / (period / 1e3),
+            "model_flops_per_step": flops,
+            "mfu": flops / (step_ms / 1e3 * BF16_PEAK_FLOPS),
+            "mfu_note": "6 N tokens over the step's device time at 989 TFLOP/s dense bf16; "
+                        "the recomputed forward is not counted"}
+        self.say(f"lm_train {TRAIN_ARCH} (full config, {cfg.num_layers} layers, {n_params:,} "
+                 f"params, state {state_bytes / 1e9:.2f} GB): init {init_s:.1f} s (peak "
+                 f"{init_peak / 1e9:.2f} GB), peak over {TRAIN_STEPS} steps {peak / 1e9:.2f} GB; "
+                 f"losses {[round(x, 4) for x in losses]}, grad norms "
+                 f"{[round(x, 4) for x in norms]}; steps 2-5 median: forward+backward "
+                 f"{fb:.1f} ms, optimizer {op:.1f} ms, step {step_ms:.1f} ms (period with the "
+                 f"host {period:.1f} ms); {row['tokens_per_s']:.0f} tokens/s, model FLOPs "
+                 f"utilization {100 * row['mfu']:.1f} % (6 N T, recompute not counted)")
+        self.say(f"lm_train {TRAIN_ARCH} in-place restore at full size, params and master: "
+                 f"checkpoint {restored['checkpoint_bytes'] / 1e9:.2f} GB (save stall "
+                 f"{restored['stall_s']:.1f} s, write {restored['write_s']:.1f} s), restored into the "
+                 f"live state in {restored['restore_s']:.1f} s adding "
+                 f"{restored['restore_added_bytes'] / 1e9:.3f} GB to the card (one float32 leaf: "
+                 f"{restored['restore_leaf_bytes'] / 1e9:.3f} GB); step {TRAIN_STEPS} replayed, loss "
+                 f"{restored['losses']}, peak {restored['peak_bytes'] / 1e9:.2f} GB; free disk "
+                 f"{restored['disk_free_bytes'] / 1e9:.0f} GB, memory "
+                 f"{restored['mem_available_bytes'] / 1e9:.0f} GB before")
+        del params, opt, loop
+
+    def _train_restore_full(self, cfg, opt_cfg, data_cfg, params, opt, ckpt_dir):
+        """The in-place restore at full size, into the live state: the params
+        and the float32 master after TRAIN_STEPS steps saved (half of the
+        whole state's 61 GB checkpoint, which would pass the machine's disk
+        allowance), one more step taken, the two restored into the state
+        that step left and the step replayed from them."""
+        need = 8 * api.param_count(params)
+        room = _disk_and_memory(ckpt_dir)
+        if room["disk_free_bytes"] < TRAIN_RESTORE_ROOM * need or \
+                room["mem_available_bytes"] < TRAIN_RESTORE_ROOM * need:
+            raise AssertionError(f"the full-size restore needs {TRAIN_RESTORE_ROOM} x "
+                                 f"{need / 1e9:.1f} GB of disk and of host memory: {room}")
+        what = f"{TRAIN_ARCH} restore"
+        saved = _bit_sums((params, opt.master))
+        marks = {}
+        ckpt = Checkpointer(ckpt_dir)
+        t0 = time.perf_counter()
+        ckpt.save(TRAIN_STEPS, (params, opt.master))
+        marks["stall_s"] = time.perf_counter() - t0
+        ckpt.wait()
+        marks["write_s"] = time.perf_counter() - t0 - marks["stall_s"]
+        marks["checkpoint_bytes"] = sum(
+            f.stat().st_size for f in (pathlib.Path(ckpt_dir) / f"step_{TRAIN_STEPS}").iterdir())
+        step = make_train_step(cfg, opt_cfg)
+        batch = batch_at_step(data_cfg, TRAIN_STEPS, device="cuda")
+        params, opt, first = step(params, opt, batch)
+        if torch.equal(_bit_sums((params, opt.master)), saved):
+            raise AssertionError(f"{what}: the step changed no bit sum")
+        _timed_restore(ckpt, marks)
+        ckpt.restore((params, opt.master))
+        if not torch.equal(_bit_sums((params, opt.master)), saved):
+            raise AssertionError(f"{what}: the restored bit sums differ from the saved ones")
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, replay = step(params, opt, batch)
+        losses = [first["loss"].item(), replay["loss"].item()]
+        if losses[0] != losses[1] or not np.isfinite(losses[0]):
+            raise AssertionError(f"{what}: the replayed step's loss {losses[1]} against {losses[0]}")
+        _hold_restore_memory(what, marks)
+        return {**marks, **room, "restored": "params and master", "restored_equal": True,
+                "peak_bytes": torch.cuda.max_memory_allocated(), "losses": losses}
+
+    def _train_cut(self, report):
+        """phi3 at full width cut to 2 layers: one make_train_step on the card
+        against the CPU (weights copied from the card), then 2 microbatches
+        against 1 on the card."""
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), **TRAIN_CUT)
+        _, _, _, _, opt_cfg = train_launcher.setup(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS)])
+        data = train_launcher.data_config(cfg, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ)
+        init = copy.deepcopy(api.init(cfg, prng.PRNGKey(0), device="cuda")).to("cpu")
+        step = make_train_step(cfg, opt_cfg)
+        out, secs = {}, {}
+        for dev in ("cpu", "cuda"):
+            model = copy.deepcopy(init).to(dev)
+            t0 = time.perf_counter()
+            out[dev] = step(model, adamw.init(model), batch_at_step(data, 0, device=dev))
+            out[dev][2]["loss"].item()                 # waits for the device
+            secs[dev] = time.perf_counter() - t0
+        what = f"{TRAIN_ARCH} x{cfg.num_layers}"
+        row = report["card_vs_cpu"] = {"layers": cfg.num_layers, "batch": [TRAIN_CUT_BATCH,
+                                                                        TRAIN_CUT_SEQ],
+                                       "cpu_s": secs["cpu"], "card_s": secs["cuda"],
+                                       **_hold_step(what, out["cuda"], out["cpu"], opt_cfg.lr)}
+        del out
+        mb = {}
+        for n in (1, 2):
+            model = copy.deepcopy(init).to("cuda")
+            mb[n] = make_train_step(cfg, opt_cfg, microbatches=n)(
+                model, adamw.init(model), batch_at_step(data, 0, device="cuda"))
+        (p1, _, m1), (p2, _, m2) = mb[1], mb[2]
+        if abs(m1["loss"].item() - m2["loss"].item()) > 1e-3 * abs(m1["loss"].item()):
+            raise AssertionError(f"microbatches: loss {m2['loss'].item()} against {m1['loss'].item()}")
+        if {p.dtype for p in p2.parameters()} != {torch.float32}:
+            raise AssertionError("microbatches: the params did not take the float32 gradients' dtype")
+        mb_diff = max(float((a.detach().float() - b.detach().float()).abs().max())
+                      for a, b in zip(p1.parameters(), p2.parameters()))
+        if mb_diff > 2e-2:
+            raise AssertionError(f"microbatches: params differ by {mb_diff}")
+        row["microbatches"] = {"loss_1": m1["loss"].item(), "loss_2": m2["loss"].item(),
+                               "max_param_diff": mb_diff, "dtypes_2": ["float32"]}
+        self.say(f"lm_train {what} at full width, card against CPU: {row}")
+        del mb, p1, p2, init
+
+    def _train_resume(self, report):
+        """The checkpoint cycle at the 2-layer cut, under
+        torch.use_deterministic_algorithms: a loop stopped at step 2 and
+        resumed to 4 ends bit for bit where an uninterrupted loop ends."""
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), **TRAIN_CUT)
+        _, _, _, _, opt_cfg = train_launcher.setup(
+            ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_RESUME_STEPS)])
+        data = train_launcher.data_config(cfg, TRAIN_CUT_BATCH, TRAIN_CUT_SEQ)
+        base = pathlib.Path(tempfile.mkdtemp(prefix="lm_train_ckpt_"))
+        room = _disk_and_memory(base)
+        if room["disk_free_bytes"] < TRAIN_MIN_FREE_BYTES:
+            shutil.rmtree(base)
+            raise AssertionError(f"the checkpoint cycle needs {TRAIN_MIN_FREE_BYTES / 1e9:.0f} GB "
+                                 f"free under {base}: {room}")
+        marks = {}
+        torch.use_deterministic_algorithms(True)
+        try:
+            def loop(steps, every, sub):
+                return TrainLoop(cfg, data, TrainConfig(steps=steps, ckpt_every=every,
+                                                        ckpt_dir=str(base / sub)),
+                                 opt_cfg, device="cuda")
+            whole = loop(TRAIN_RESUME_STEPS, TRAIN_RESUME_STEPS + 1, "whole")
+            p_whole, o_whole, h_whole = whole.run(prng.PRNGKey(0))
+            want = _state_of(p_whole, o_whole)
+            del p_whole, o_whole
+            _free_card()
+
+            first = loop(2, 2, "cycle")
+            save = first.ckpt.save
+
+            def timed_save(step, tree, **kw):
+                t0 = time.perf_counter()
+                save(step, tree, **kw)
+                marks["saved"] = time.perf_counter()
+                marks["stall_s"] = marks["saved"] - t0
+            first.ckpt.save = timed_save
+            _, _, h_first = first.run(prng.PRNGKey(0))
+            marks["write_s"] = time.perf_counter() - marks["saved"]
+            disk = sum(f.stat().st_size for f in (base / "cycle" / "step_2").iterdir())
+            del first
+            _free_card()
+
+            second = loop(TRAIN_RESUME_STEPS, TRAIN_RESUME_STEPS + 1, "cycle")
+            _timed_restore(second.ckpt, marks)
+            p_res, o_res, h_second = second.run(prng.PRNGKey(0))
+            got = _state_of(p_res, o_res)
+            step_res = int(o_res.step)
+            del p_res, o_res, second
+        finally:
+            torch.use_deterministic_algorithms(False)
+            shutil.rmtree(base, ignore_errors=True)
+        if [h["step"] for h in h_first + h_second] != list(range(TRAIN_RESUME_STEPS)) or \
+                step_res != TRAIN_RESUME_STEPS:
+            raise AssertionError(f"resume: steps {[h['step'] for h in h_first + h_second]}, "
+                                 f"optimizer step {step_res}")
+        if [h["loss"] for h in h_first + h_second] != [h["loss"] for h in h_whole]:
+            raise AssertionError(f"resume: losses {[h['loss'] for h in h_first + h_second]} "
+                                 f"against {[h['loss'] for h in h_whole]}")
+        differ = [n for n in want[0] if not torch.equal(want[0][n], got[0][n])]
+        differ += [f"{f}.{k}" for f in want[1] for k in want[1][f]
+                   if not torch.equal(want[1][f][k], got[1][f][k])]
+        if differ:
+            raise AssertionError(f"resume: {len(differ)} leaves differ from the uninterrupted "
+                                 f"loop, first {differ[:4]}")
+        _hold_restore_memory("resume", marks)
+        row = report["resume"] = {"layers": cfg.num_layers, "deterministic": True,
+                                  "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+                                  "checkpoint_bytes": disk, **room, **marks,
+                                  "losses": [h["loss"] for h in h_whole]}
+        self.say(f"lm_train {TRAIN_ARCH} x{cfg.num_layers}: stopped at step 2 and resumed to "
+                 f"{TRAIN_RESUME_STEPS} equals the uninterrupted loop bit for bit (deterministic "
+                 f"algorithms); checkpoint {disk / 1e9:.2f} GB, save stall "
+                 f"{marks['stall_s']:.2f} s, async write {marks['write_s']:.2f} s, restore "
+                 f"{marks['restore_s']:.2f} s in place (adding "
+                 f"{marks['restore_added_bytes'] / 1e9:.3f} GB to the card); free disk {room['disk_free_bytes'] / 1e9:.0f} GB, "
+                 f"memory {room['mem_available_bytes'] / 1e9:.0f} GB")
+        del want, got
+
+    def _train_smoke(self, report):
+        """The ten archs' smoke configs: one make_train_step on the card
+        against the CPU from the same weights, MoE routing compared first."""
+        rows = report["smoke"] = {}
+        for arch in (a for a in ARCH_IDS if a != "paper-bayes-fusion"):
+            cfg = get_smoke_config(arch)
+            _, _, _, _, opt_cfg = train_launcher.setup(["--arch", arch, "--smoke", "--steps", "10"])
+            data = train_launcher.data_config(cfg, TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ)
+            init = copy.deepcopy(api.init(cfg, prng.PRNGKey(0), device="cuda")).to("cpu")
+            batch = batch_at_step(data, 0, device="cpu")
+
+            def step(rows):
+                """The step on both devices from ``init`` on the batch's
+                ``rows``: (results, routing agreement or None)."""
+                out, routes = {}, {}
+                for dev in ("cpu", "cuda"):
+                    model = copy.deepcopy(init).to(dev)
+                    b = {k: v[rows].to(dev) for k, v in batch.items()}
+                    with torch.no_grad(), _Routes() as r:
+                        api.loss(model, cfg, b)
+                    routes[dev] = r.calls
+                    out[dev] = make_train_step(cfg, opt_cfg)(model, adamw.init(model), b)
+                if not cfg.moe:
+                    return out, None, None
+                return out, *_route_agreement(cfg, len(rows), [
+                    (a[0], a[1], b[1]) for a, b in zip(routes["cpu"], routes["cuda"])])
+
+            row = {}
+            out, held, routing = step(torch.arange(TRAIN_SMOKE_BATCH))
+            alike = not cfg.moe or routing["differ"] == 0
+            if cfg.moe:
+                row["routing"] = routing
+            if not alike:
+                # a near-tie flipped: the step again on the rows that route alike
+                out, _, row["routing_held_rows"] = step(held)
+                alike = row["routing_held_rows"]["differ"] == 0
+            row.update(_hold_step(f"{arch} (smoke)", out["cuda"], out["cpu"], opt_cfg.lr,
+                                  routed_alike=alike))
+            rows[arch] = row
+            self.say(f"lm_train {arch} (smoke) train step, card against CPU: {row}")
+            del out, init
+
+    def _train_launchers(self, report):
+        """launch.train --smoke and examples.train_lm on the card against the
+        CPU (every step's loss within TRAIN_TRAJ_ATOL); then the example on the
+        card at its script's 60 steps, whose loss must decrease."""
+        hist, secs = {}, {}
+        with tempfile.TemporaryDirectory(prefix="lm_train_launch_") as d:
+            for dev in ("cpu", "cuda"):
+                argv = ["--arch", TRAIN_ARCH, "--smoke", "--steps", str(TRAIN_LAUNCH_STEPS),
+                        "--device", dev, "--ckpt-dir", str(pathlib.Path(d) / dev)]
+                t0 = time.perf_counter()
+                hist[dev] = [h["loss"] for h in train_launcher.main(argv)]
+                secs[dev] = time.perf_counter() - t0
+        launch_diff = max(abs(a - b) for a, b in zip(hist["cuda"], hist["cpu"]))
+        if len(hist["cuda"]) != TRAIN_LAUNCH_STEPS or launch_diff > TRAIN_TRAJ_ATOL:
+            raise AssertionError(f"launch.train: card {hist['cuda']} against CPU {hist['cpu']}")
+        ex = {dev: train_lm.run(dev, steps=TRAIN_EXAMPLE_STEPS) for dev in ("cpu", "cuda")}
+        ex_diff = max(abs(a - b) for a, b in zip(ex["cuda"]["losses"], ex["cpu"]["losses"]))
+        if ex_diff > TRAIN_TRAJ_ATOL:
+            raise AssertionError(f"train_lm: card {ex['cuda']['losses']} against CPU "
+                                 f"{ex['cpu']['losses']}")
+        t0 = time.perf_counter()
+        full = train_lm.run("cuda")
+        full_s = time.perf_counter() - t0
+        if not full["losses"][-1] < full["losses"][0]:
+            raise AssertionError(f"train_lm: the loss did not decrease: {full['losses']}")
+        report["launch_train"] = {"steps": TRAIN_LAUNCH_STEPS, "losses_card": hist["cuda"],
+                                  "losses_cpu": hist["cpu"], "max_abs_diff": launch_diff,
+                                  "card_s": secs["cuda"], "cpu_s": secs["cpu"]}
+        report["train_lm"] = {"steps_compared": TRAIN_EXAMPLE_STEPS, "max_abs_diff": ex_diff,
+                              "losses_card": ex["cuda"]["losses"], "losses_cpu": ex["cpu"]["losses"],
+                              "full_steps": full["steps"], "full_losses": full["losses"],
+                              "full_s": full_s, "params": full["n_params"],
+                              "checkpoints": full["checkpoints"]}
+        self.say(f"lm_train launch.train --smoke x{TRAIN_LAUNCH_STEPS} card against CPU: losses "
+                 f"within {launch_diff:.4f} ({secs['cuda']:.1f} s on the card, "
+                 f"{secs['cpu']:.1f} s on the CPU); train_lm x{TRAIN_EXAMPLE_STEPS} within "
+                 f"{ex_diff:.4f}; train_lm on the card ({full['n_params'] / 1e6:.1f}M params, "
+                 f"{full['steps']} steps, {full_s:.1f} s): loss {full['losses'][0]:.3f} -> "
+                 f"{full['losses'][-1]:.3f}, checkpoints at {full['checkpoints']}")
+
+
     def operators(self):
         self.op_err = {"sne_encode": 0, "pand_popcount": 0, "bayes_decide": 0, "fusion_map": 0.0}
         self._operator_checks()
@@ -3125,7 +3701,7 @@ def main() -> int:
     s.phase("device", s.device)
     run("build")
     for name in ("kernels", "main_path", "timing", "binary_timing", "drain_trace", "router",
-                 "paper_layer", "lm_serve", "lm_blocks", "operators"):
+                 "paper_layer", "lm_serve", "lm_blocks", "lm_train", "operators"):
         run(name, "build")
     run("operator_timing", "build", "operators")
     run("unfused_kernels", "build")

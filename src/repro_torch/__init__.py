@@ -12,6 +12,10 @@ logic, correlation, inference, the Fig S8 motifs, stochastic fusion, the
 latency model) with the four paper examples (``repro_torch.examples``); and
 the LM serving path -- the configs of every arch, the attention-only decoder
 stack (``repro_torch.models``), the ``ServeEngine`` whose Bayes gate runs the
-``bayes_decide`` kernel, its launcher and the ``serve_lm`` example.
+``bayes_decide`` kernel, its launcher and the ``serve_lm`` example; every
+block kind of the model zoo; and the training stack -- AdamW
+(``repro_torch.optim``), the data pipeline, checkpoints in the reference's
+on-disk form (``repro_torch.checkpoint``), ``TrainLoop``
+(``repro_torch.train``), the train launcher and the ``train_lm`` example.
 Entry points take ``device=`` and default to the card.
 """

@@ -9,6 +9,9 @@
     obstacle_fusion  Fig 4: RGB + thermal fusion of a night scene through
                      ``fusion_map`` and the stochastic ``bayes_decide``
 
+and the LM examples: ``serve_lm`` (batched requests behind the Bayes gate)
+and ``train_lm`` (a qwen2-family model trained through ``TrainLoop``).
+
 ``python -m repro_torch.examples.<name>`` runs one at the reference script's
 sizes on the card and prints what the reference script prints.
 """

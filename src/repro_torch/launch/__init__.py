@@ -1,1 +1,1 @@
-"""Command-line launchers of the port (the LM serving launcher so far)."""
+"""Command-line launchers of the port: LM serving (``serve``) and training (``train``)."""

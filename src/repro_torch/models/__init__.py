@@ -9,6 +9,7 @@
                     tree and forward / loss / prefill / decode
     encdec.py       the encoder-decoder model (the audio family)
     api.py          the family-dispatch facade the launchers call
-    convert.py      the reference's params in and out, leaf for leaf
+    convert.py      the reference's params in and out, leaf for leaf, and
+                    state-dict keys grouped by reference leaf
     bayes_head.py   the paper's fusion operators at the LM decision layer
 """

@@ -17,6 +17,8 @@ when ``cfg`` is given.
 
 from __future__ import annotations
 
+import itertools
+
 import ml_dtypes
 import numpy as np
 import torch
@@ -166,3 +168,55 @@ def state_dict_key(keystr: str, rep: int | None = None) -> str:
             raise ValueError(f"{keystr}: a stacked {parts[0]} leaf needs its repetition")
         parts = parts[:at] + [str(rep)] + parts[at:]
     return ".".join(parts)
+
+
+def reference_path(key: str) -> tuple:
+    """The inverse of :func:`state_dict_key`: a state-dict key -> ``(path,
+    rep)``, the reference leaf's path (dict keys as str, the indices of
+    ``blocks`` and ``prefix`` as int) and the repetition or layer of a
+    stacked leaf (``None`` for a leaf of its own).  A key outside the model's
+    layout (``"w"``) is a one-level path."""
+    parts = key.split(".")
+    head, rest = parts[0], parts[1:]
+    n = sum(1 for _ in itertools.takewhile(str.isdigit, rest))   # leading indices
+    if head == "blocks" and n >= 2 and len(rest) > 2:
+        return ("blocks", int(rest[0]), *rest[2:]), int(rest[1])
+    if head in _STACKED_LAYERS and n >= 1 and len(rest) > 1:
+        return (head, *rest[1:]), int(rest[0])
+    if head == "prefix" and n >= 1 and len(rest) > 1:
+        return ("prefix", int(rest[0]), *rest[1:]), None
+    return tuple(parts), None
+
+
+def keystr(path) -> str:
+    """``jax.tree_util.keystr`` of a path of dict keys (str) and sequence
+    indices (int): ``['blocks'][0]['attn']['wq']``."""
+    return "".join(f"[{p}]" if isinstance(p, int) else f"[{p!r}]" for p in path)
+
+
+def reference_leaves(keys) -> list:
+    """State-dict keys grouped by reference leaf, in the reference's flatten
+    order (dict keys sorted, sequences by index): a list of ``(keystr,
+    members)``, ``members`` the ``(rep, key)`` pairs of the leaf sorted by
+    repetition (one pair with ``rep`` None for a leaf that is not stacked)."""
+    tree: dict = {}
+    for key in keys:
+        path, rep = reference_path(key)
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node.setdefault(path[-1], []).append((rep, key))
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, list):
+            reps = [r for r, _ in node]
+            if (len(node) > 1 and None in reps) or len(set(reps)) != len(reps):
+                raise ValueError(f"{keystr(path)}: repetitions {reps} do not stack")
+            out.append((keystr(path), sorted(node, key=lambda m: -1 if m[0] is None else m[0])))
+            return
+        for p in sorted(node):            # str keys of a dict, or the int indices of a sequence
+            walk(node[p], path + (p,))
+
+    walk(tree, ())
+    return out

@@ -89,6 +89,9 @@ def encode(params: Params, cfg, frames: torch.Tensor) -> torch.Tensor:
 
     def block(x, bp):
         h = layers.apply_norm(bp["norm1"], x, cfg.norm)
+        # float32 weights (a model after a microbatched step) take the bf16
+        # frames' first norm up to float32, as the reference's matmul does
+        h = h.to(torch.promote_types(h.dtype, bp["attn"]["wq"].dtype))
         mix, _ = layers.gqa_apply(bp["attn"], h, cfg, kind="full_bidir", positions=positions,
                                   rope=True)
         x = x + mix

@@ -306,8 +306,9 @@ def mtp_hidden(params: Params, cfg, h: torch.Tensor, next_tokens: torch.Tensor) 
 
 
 def loss_fn(params: Params, cfg, batch: Dict[str, torch.Tensor]):
-    """Causal LM loss (+ deepseek's MTP term); forward only: gradients come
-    with the training stack."""
+    """Causal LM loss (+ deepseek's MTP term).  Differentiable: with grad
+    enabled each repetition of the stack is recomputed in the backward
+    (``forward``); ``train.loop.make_train_step`` takes its gradients."""
     tokens, labels = batch["tokens"], batch["labels"]
     extra = batch.get("extra_embeds")
     h, aux = forward(params, cfg, tokens, extra, return_hidden=True)
