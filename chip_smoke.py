@@ -158,7 +158,28 @@ Phases (any failure makes the script exit non-zero without the result line):
               ``examples.train_lm.run`` card against CPU (every step's loss),
               and the example on the card at its script's 60 steps, whose loss
               must fall.
-13. operators -- the paper's fusion operators.  Each of ``sne_encode``,
+13. multi_device -- the multi-device half on ``torch.distributed``: a world
+              of 2 ranks sharing the one card over gloo (``cpu:gloo,cuda:gloo``;
+              NCCL takes no two ranks on one GPU), spawned with a timeout, a
+              failing rank failing the phase.  The 7 scenarios at B=1024,
+              n_bits=4096 through ``compile_network(devices=2)``, run and
+              decide bit-equal to the single launch of the same plan, launch
+              counts reset just before and read just after (one ``net_sweep``
+              launch per rank per call), an odd batch (unsharded), and
+              frames/s sharded against single; ``examples.sharded_sweep.run``
+              at its own size; llama4-scout's MoE layer at its published
+              width (16 experts of 8192, top-1, a shared expert; 4.03 GB of
+              expert leaves) expert parallel on a (1, 2) mesh against the local
+              path, expert ids first; the GPipe pipeline at d=3072 against the
+              unpipelined oracle; ``compressed_mean`` of a 3072 x 3072
+              gradient bit for bit.  Then the sharded loss of phi3-mini-3.8b at
+              full width cut to 2 layers (DTensor params placed by
+              ``param_shardings``) against the unsharded loss at 1 rank over
+              NCCL: gloo kills the process in the functional all_gather that
+              DTensor's Shard -> Replicate uses on CUDA tensors.  Seconds and
+              peak GB per rank per step.  Two ranks on one card measure the
+              logic and gloo's host copies, not NVLink.
+14. operators -- the paper's fusion operators.  Each of ``sne_encode``,
               ``pand_popcount``, ``bayes_decide`` and ``fusion_map`` against
               its plain torch version on the card (bit for bit; fusion_map
               within atol 2e-6, rtol 1e-5) at M 1..3, K 1, 2, 8, 16 and 33,
@@ -175,7 +196,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               decision (4096 decisions, M=K=2, 128 bits: fused, composed,
               ``bayes_decide_packed``); and the ``obstacle_fusion`` example
               flow at 64x64 (``examples.obstacle_fusion.run``).
-14. operator_timing -- device time per launch (``torch.profiler``, the L2
+15. operator_timing -- device time per launch (``torch.profiler``, the L2
               flushed before each launch) and per back-to-back call (CUDA
               events) of the four kernels at the full batch and at a
               65,536-pixel slice of it, beside their plain
@@ -188,7 +209,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               bound counts the shared body's least integer work per entropy
               word, logic on the 64 ALU lanes of an SM and multiplies and
               adds free to use all 128, as ``net_sweep``'s.
-15. unfused_kernels -- the ``node_mux`` kernels against their plain versions
+16. unfused_kernels -- the ``node_mux`` kernels against their plain versions
               on the card, bit for bit: gather and rows at 0 to 6 parents
               (per-row tables and shared rows holding thresholds 0, 128, 256
               and the half steps) and at 7 and 8 (the gather on the
@@ -197,7 +218,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               (per-row and shared tables; 6 binary parents at k = 2) and
               its wide path at 9 planes and at 17 parents, k-ary roots, and
               counter origins that wrap 2**32.
-16. unfused_path -- the unfused lowering through its entry points at
+17. unfused_path -- the unfused lowering through its entry points at
               n_bits=4096, B=1024, counts reset just before and read just
               after: 7 scenarios x {``fused=False``, ``share_entropy=True``},
               ``mux_mode='rows'`` on the 4 binary scenarios and
@@ -208,12 +229,12 @@ Phases (any failure makes the script exit non-zero without the result line):
               Then the unfused, shared-entropy and fused posteriors against the
               enumeration oracle: per distinct evidence vector, the posterior
               pooled over its frames within 4.5 sqrt(p (1-p) / accepted).
-17. wide_path -- the wide network through ``compile_network`` fused,
+18. wide_path -- the wide network through ``compile_network`` fused,
               ``fused=False``, ``share_entropy=True`` and ``mux_mode='rows'`` at
               n_bits=4096, B=1024, each ``decide`` bit-equal to
               ``device="cpu"``; counts reset just before and read just after,
               and each wide kernel must have launched.
-18. unfused_timing -- device time per launch and per back-to-back call of the
+19. unfused_timing -- device time per launch and per back-to-back call of the
               node_mux kernels at B=1024 and B=65,536 (n_bits=4096; the wide
               paths at B=256) beside their plain versions and bounds; launches
               of each kernel per unfused ``run`` of each scenario; wall time per
@@ -1616,6 +1637,277 @@ def _hold_lm_runs(what, card_calls, cpu_calls, temp):
     return len(cpu_calls), len(cpu_calls)
 
 
+# --------------------------------------------------------------------------- multi_device
+MD_RANKS = 2                  # ranks sharing a single card, over gloo
+MD_SHARED = "cpu:gloo,cuda:gloo"    # NCCL takes no two ranks on one GPU
+MD_NCCL = "cpu:gloo,cuda:nccl"
+MD_TIMEOUT = 480              # seconds for the whole world
+MD_GROUP_TIMEOUT = 180        # seconds a rank waits in a collective
+MD_MOE_ARCH, MD_MOE_TOKENS = "llama4-scout-17b-a16e", (2, 256)
+MD_MOE_TOL = (2e-2, 2e-2)     # (atol, rtol), bf16: EP against the local path
+MD_LOSS_ARCH, MD_LOSS_LAYERS, MD_LOSS_TOKENS = "phi3-mini-3.8b", 2, (2, 256)
+MD_LOSS_RTOL = 1e-3           # the sharded loss against the unsharded one
+MD_PIPE_D, MD_PIPE_M, MD_PIPE_B = 3072, 6, 4   # phi3's width, the reference test's schedule
+MD_PIPE_TOL = 1e-5
+MD_CM_ROWS = 3072             # compressed_mean: a (3072, 3072) weight's gradient, rows split
+
+
+def _md_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def _md_sync():
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+
+
+def _md_best_s(fn, reps=5):
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        _md_sync()
+        t0 = time.perf_counter()
+        fn()
+        _md_sync()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _md_sweep(rep, n):
+    """The 7 scenarios at B=1024, n_bits=4096 sharded over the world, run and
+    decide bit-equal to the single launch of the same plan; an odd batch;
+    launches per rank; frames/s sharded and single."""
+    key = prng.PRNGKey(0)
+    out = rep["sweep"] = {"per_scenario": {}}
+    launches = odd_launches = 0
+    for name in NAMES:
+        spec = _spec(name)
+        ev = torch.from_numpy(_evidence(spec, BATCH, 7)).cuda()
+        single = compile_network(spec, n_bits=N_BITS, devices=1, device="cuda")
+        shard = compile_network(spec, n_bits=N_BITS, devices=n, device="cuda")
+        assert shard.n_shards == n, (name, shard.n_shards)
+        net_sweep_kernel.net_sweep_cuda.launches = 0
+        got = shard.run(key, ev) + shard.decide(key, ev)
+        torch.cuda.synchronize()
+        launches += net_sweep_kernel.net_sweep_cuda.launches
+        want = single.run(key, ev) + single.decide(key, ev)
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name}: the sharded sweep differs from the single launch")
+        net_sweep_kernel.net_sweep_cuda.launches = 0
+        odd = shard.run(key, ev[:BATCH - 1])
+        torch.cuda.synchronize()
+        odd_launches += net_sweep_kernel.net_sweep_cuda.launches
+        for g, w in zip(odd, single.run(key, ev[:BATCH - 1])):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name}: the odd batch differs from the single launch")
+        out["per_scenario"][name] = {"frames": BATCH, "shard_frames": BATCH // n}
+    out["launches_per_rank"] = launches
+    out["odd_launches_per_rank"] = odd_launches
+    spec = _spec(TIMED_SCENARIO)
+    ev = torch.from_numpy(_evidence(spec, BATCH, 7)).cuda()
+    single = compile_network(spec, n_bits=N_BITS, devices=1, device="cuda")
+    shard = compile_network(spec, n_bits=N_BITS, devices=n, device="cuda")
+    out["single_fps"] = BATCH / _md_best_s(lambda: single.run(prng.PRNGKey(0), ev))
+    out["sharded_fps"] = BATCH / _md_best_s(lambda: shard.run(prng.PRNGKey(0), ev))
+
+
+def _md_example(rep, n):
+    """``examples.sharded_sweep.run`` at its own size."""
+    from repro_torch.examples import sharded_sweep
+
+    r = sharded_sweep.run("cuda")
+    if not r["identical"] or r["drained"] != r["frames"]:
+        raise AssertionError(f"sharded_sweep: identical={r['identical']}, "
+                             f"drained {r['drained']} of {r['frames']}")
+    rep["example"] = {k: r[k] for k in ("frames", "n_shards", "single_fps", "sharded_fps",
+                                        "drained", "drain_s")}
+
+
+def _md_moe(rep, mesh):
+    """llama4-scout's MoE layer at its published width (16 experts of 8192,
+    top-1, a shared expert): local against expert parallel over `model`."""
+    from repro_torch.distributed import context as dctx
+
+    cfg = get_config(MD_MOE_ARCH)
+    t0 = time.perf_counter()
+    mp = moe.moe_init(prng.PRNGKey(2), cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    x = prng.normal(prng.PRNGKey(3), MD_MOE_TOKENS + (cfg.d_model,), device="cuda")
+    x = x.to(torch.bfloat16)
+    with torch.no_grad():
+        xt = x.reshape(-1, cfg.d_model)
+        ids = moe._router_probs(xt.float() @ mp["router"], cfg.moe.router, cfg.moe.top_k)[1]
+        local, _ = moe.moe_apply(mp, x, cfg)
+        with dctx.mesh_context(mesh):
+            ep, _ = moe.moe_apply(mp, x, cfg)
+            t_ep = _md_best_s(lambda: moe.moe_apply(mp, x, cfg), reps=3)
+        t_local = _md_best_s(lambda: moe.moe_apply(mp, x, cfg), reps=3)
+    # the expert ids first: the EP path routes this rank's tokens by the same router
+    ids_ep = moe._router_probs(xt.float() @ mp["router"], cfg.moe.router, cfg.moe.top_k)[1]
+    if not torch.equal(ids, ids_ep):
+        raise AssertionError("moe: expert ids differ")
+    err = _md_err(ep, local)
+    atol, rtol = MD_MOE_TOL
+    if not torch.allclose(ep.float(), local.float(), atol=atol, rtol=rtol):
+        raise AssertionError(f"moe: EP against local max abs err {err}")
+    leaf_gb = sum(mp[k].numel() * mp[k].element_size() for k in ("wi", "wg", "wo")) / 1e9
+    rep["moe"] = {"arch": MD_MOE_ARCH, "tokens": list(MD_MOE_TOKENS), "experts": cfg.moe.num_experts,
+                  "expert_leaves_gb": leaf_gb, "init_s": init_s, "max_abs_err": err,
+                  "tol": list(MD_MOE_TOL), "ep_ms": t_ep * 1e3, "local_ms": t_local * 1e3}
+    del mp
+
+
+def _md_loss(rep, mesh):
+    """phi3-mini-3.8b at full width cut to 2 layers: the loss with params
+    placed by ``param_shardings`` under the mesh against the unsharded loss."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding
+
+    cfg = dataclasses.replace(get_config(MD_LOSS_ARCH), num_layers=MD_LOSS_LAYERS)
+    params = api.init(cfg, prng.PRNGKey(0), device="cuda")
+    n_params = api.param_count(params)
+    r = np.random.default_rng(5)
+    tokens = torch.from_numpy(r.integers(0, cfg.vocab_size, MD_LOSS_TOKENS)).cuda()
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    with torch.no_grad():
+        plain = float(api.loss(params, cfg, batch)[0])
+        sharding.distribute_params(params, mesh)
+        bs = {k: sharding.shard(v, mesh, sharding.batch_sharding(mesh)) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with dctx.mesh_context(mesh):
+            sharded = api.loss(params, cfg, bs)[0].full_tensor()
+        sharded = float(sharded)
+        loss_s = time.perf_counter() - t0
+    rel = abs(sharded - plain) / abs(plain)
+    if not (np.isfinite(sharded) and rel <= MD_LOSS_RTOL):
+        raise AssertionError(f"loss: sharded {sharded} against {plain} (rel {rel})")
+    rep["loss"] = {"arch": MD_LOSS_ARCH, "layers": MD_LOSS_LAYERS, "params": n_params,
+                   "tokens": list(MD_LOSS_TOKENS), "plain": plain, "sharded": sharded,
+                   "rel_err": rel, "rtol": MD_LOSS_RTOL, "sharded_s": loss_s}
+    del params
+
+
+def _md_pipeline(rep, mesh):
+    """GPipe, a stage per rank at phi3's width, against the unpipelined oracle."""
+    from repro_torch.distributed.pipeline import pipeline_forward, reference_forward
+
+    g = torch.Generator().manual_seed(11)
+    d, n = MD_PIPE_D, mesh.shape[0]
+    params = {"w1": (torch.randn(n, d, 2 * d, generator=g) * 0.02).cuda(),
+              "w2": (torch.randn(n, 2 * d, d, generator=g) * 0.02).cuda()}
+    x = torch.randn(MD_PIPE_M, MD_PIPE_B, d, generator=g).cuda()
+
+    def stage_fn(p, h):
+        return h + layers.gelu(h @ p["w1"]) @ p["w2"]
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        got = pipeline_forward(stage_fn, params, x, mesh)
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        want = reference_forward(stage_fn, params, x)
+    err = _md_err(got, want)
+    if not torch.allclose(got, want, atol=MD_PIPE_TOL, rtol=MD_PIPE_TOL):
+        raise AssertionError(f"pipeline: max abs err {err}")
+    rep["pipeline"] = {"d": d, "stages": n, "microbatches": MD_PIPE_M, "max_abs_err": err,
+                       "tol": MD_PIPE_TOL, "pipeline_s": pipe_s}
+
+
+def _md_compressed(rep, mesh):
+    """compressed_mean over `data`: per rank, bit for bit the codes of both
+    shards summed in float32 times this rank's own scale over n."""
+    from repro_torch.optim import compression
+
+    g = torch.Generator().manual_seed(12)
+    grad = (torch.randn(MD_CM_ROWS, MD_PIPE_D, generator=g) * 0.01).cuda()
+    n = mesh.shape[0]
+    rows = MD_CM_ROWS // n
+    d = mesh.get_local_rank("data")
+    shards = [{"w": grad[i * rows:(i + 1) * rows]} for i in range(n)]
+    zero = {"w": torch.zeros_like(shards[0]["w"])}
+    key = prng.PRNGKey(0)
+    mean, res = compression.compressed_mean(key, shards[d], zero, "data", mesh)
+    enc = [compression.compress(key, sh, zero) for sh in shards]
+    total = sum(q["w"].to(torch.float32) for q, _, _ in enc)
+    want = total * enc[d][1]["w"] / n
+    if not (torch.equal(mean["w"], want) and torch.equal(res["w"], enc[d][2]["w"])):
+        raise AssertionError("compressed_mean differs from the codes' sum")
+    rep["compressed_mean"] = {"shape": [MD_CM_ROWS, MD_PIPE_D], "axis": "data", "ranks": n,
+                              "bit_equal": True}
+
+
+MD_STEPS = {   # step -> (function, mesh shape as a function of the world's ranks, axis names)
+    "sweep": (_md_sweep, None, None),
+    "example": (_md_example, None, None),
+    "moe": (_md_moe, lambda n: (1, n), ("data", "model")),
+    "loss": (_md_loss, lambda n: (1, n), ("data", "model")),
+    "pipeline": (_md_pipeline, lambda n: (n,), ("pod",)),
+    "compressed_mean": (_md_compressed, lambda n: (n,), ("data",)),
+}
+def _md_worlds(cards):
+    """(tag, ranks, backend, steps) of the worlds to run.  One rank per card
+    over NCCL where the machine has several cards.  On one card, 2 ranks
+    share it over gloo, and the sharded loss runs at 1 rank over NCCL: gloo
+    kills the process on CUDA tensors in the functional all_gather that
+    DTensor's Shard -> Replicate uses (SIGSEGV; c10d's all_gather works),
+    and refuses send/recv (writev: Bad address)."""
+    if cards > 1:
+        return (("nccl", cards, MD_NCCL, tuple(MD_STEPS)),)
+    return (("gloo", MD_RANKS, MD_SHARED, tuple(k for k in MD_STEPS if k != "loss")),
+            ("nccl", 1, MD_NCCL, ("loss",)))
+
+
+def _md_rank(rank, n, tmp, backend_name, steps):
+    """One rank of a multi_device world: the named steps on this rank's view."""
+    from datetime import timedelta
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    torch.distributed.init_process_group(
+        backend_name, init_method=f"file://{tmp}/init", rank=rank, world_size=n,
+        timeout=timedelta(seconds=MD_GROUP_TIMEOUT))
+    rep = {"rank": rank}
+    try:
+        for step in steps:
+            fn, shape, names = MD_STEPS[step]
+            args = (n,) if shape is None else \
+                (init_device_mesh("cuda", shape(n), mesh_dim_names=names),)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fn(rep, *args)
+            _md_sync()
+            rep.setdefault(step, {}).update(seconds=time.perf_counter() - t0,
+                                            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        (pathlib.Path(tmp) / f"rank{rank}.json").write_text(json.dumps(rep, default=str))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _md_world(n, backend_name, steps):
+    """Spawn a world of ``n`` ranks on the card; each rank's report, in rank
+    order.  A rank that fails, or a world past ``MD_TIMEOUT``, raises."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="multi_device_") as tmp:
+        ctx = mp.spawn(_md_rank, args=(n, tmp, backend_name, steps), nprocs=n, join=False)
+        deadline = time.monotonic() + MD_TIMEOUT
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"multi_device: the world passed {MD_TIMEOUT} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        return [json.loads((pathlib.Path(tmp) / f"rank{r}.json").read_text()) for r in range(n)]
+
+
 class Smoke:
     def __init__(self):
         self.failures = []
@@ -2676,6 +2968,63 @@ class Smoke:
         self._train_smoke(report)
         self._train_launchers(report)
 
+    def multi_device(self):
+        """The multi-device half: the sharded sweep, the sharded_sweep
+        example, MoE expert parallelism at llama4-scout's width, the sharded
+        loss at phi3's width cut to 2 layers, the GPipe pipeline and
+        compressed_mean, on worlds of ranks (``_md_worlds``).  Two ranks on
+        one card measure the logic and the host copies of gloo, not NVLink."""
+        _free_card()
+        report = self.report["multi_device"] = {"worlds": {}}
+        by_step = {}                   # step -> each rank's report of it
+        for tag, n, backend_name, steps in _md_worlds(torch.cuda.device_count()):
+            t0 = time.perf_counter()
+            got = _md_world(n, backend_name, steps)
+            report["worlds"][tag] = {"ranks": n, "backend": backend_name, "steps": steps,
+                                     "seconds": time.perf_counter() - t0, "per_rank": got}
+            by_step.update({k: [r[k] for r in got] for k in steps})
+            self.say(f"multi_device: {', '.join(steps)} on {n} ranks over {backend_name}")
+        if "gloo" in report["worlds"]:
+            self.say("multi_device: the sharded loss at 1 rank over NCCL: gloo's functional "
+                     "all_gather on CUDA tensors (DTensor's Shard -> Replicate) kills the "
+                     "process, and gloo refuses send/recv of CUDA tensors")
+        sw = by_step["sweep"]
+        n = len(sw)
+        self.md_launches = [r["launches_per_rank"] for r in sw]
+        if min(self.md_launches) < 2 * len(NAMES):
+            raise AssertionError(f"net_sweep launches per rank {self.md_launches}, "
+                                 f"want {2 * len(NAMES)}")
+        self.say(f"multi_device sweep: 7 scenarios x run+decide at B={BATCH}, n_bits={N_BITS} "
+                 f"on {n} ranks, bit-equal to the single launch; net_sweep launches per rank "
+                 f"{self.md_launches}, odd batch {[r['odd_launches_per_rank'] for r in sw]}; "
+                 f"{TIMED_SCENARIO} {[round(r['sharded_fps']) for r in sw]} frames/s sharded "
+                 f"against {[round(r['single_fps']) for r in sw]} single; {sw[0]['seconds']:.1f} s")
+        ex = by_step["example"][0]
+        self.say(f"multi_device sharded_sweep.run: {ex['frames']} frames on {ex['n_shards']} "
+                 f"shards, single {ex['single_fps']:,.0f} / sharded {ex['sharded_fps']:,.0f} "
+                 f"frames/s, drain {ex['drained']} frames in {ex['drain_s'] * 1e3:.1f} ms")
+        mo = by_step["moe"]
+        self.say(f"multi_device moe {mo[0]['arch']}: {mo[0]['experts']} experts, leaves "
+                 f"{mo[0]['expert_leaves_gb']:.2f} GB, tokens {mo[0]['tokens']}: EP against "
+                 f"local max abs err {max(r['max_abs_err'] for r in mo):.3g} (atol, rtol "
+                 f"{mo[0]['tol']}); EP {mo[0]['ep_ms']:.1f} ms, local {mo[0]['local_ms']:.1f} ms")
+        lo = by_step["loss"]
+        self.say(f"multi_device loss {lo[0]['arch']} cut to {lo[0]['layers']} layers "
+                 f"({lo[0]['params']:,} params), tokens {lo[0]['tokens']}, {len(lo)} ranks: "
+                 f"sharded {[r['sharded'] for r in lo]} against {lo[0]['plain']:.6f} (rel "
+                 f"{max(r['rel_err'] for r in lo):.2e}, rtol {lo[0]['rtol']}); "
+                 f"{lo[0]['sharded_s']:.2f} s")
+        pi = by_step["pipeline"]
+        self.say(f"multi_device pipeline d={pi[0]['d']}, {pi[0]['stages']} stages, "
+                 f"{pi[0]['microbatches']} microbatches: max abs err "
+                 f"{max(r['max_abs_err'] for r in pi):.3g} (tol {pi[0]['tol']}), "
+                 f"{pi[0]['pipeline_s']:.3f} s; compressed_mean "
+                 f"{by_step['compressed_mean'][0]['shape']} over data bit-equal on every rank")
+        report["seconds_by_step"] = {k: max(r["seconds"] for r in v) for k, v in by_step.items()}
+        report["peak_gb_per_rank"] = {k: max(r["peak_gb"] for r in v) for k, v in by_step.items()}
+        self.say(f"multi_device seconds by step {report['seconds_by_step']}; peak GB per rank "
+                 f"{report['peak_gb_per_rank']}")
+
     def _train_full(self, report):
         args, cfg, data_cfg, train_cfg, opt_cfg = train_launcher.setup(
             ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--global-batch", str(TRAIN_BATCH),
@@ -3701,7 +4050,7 @@ def main() -> int:
     s.phase("device", s.device)
     run("build")
     for name in ("kernels", "main_path", "timing", "binary_timing", "drain_trace", "router",
-                 "paper_layer", "lm_serve", "lm_blocks", "lm_train", "operators"):
+                 "paper_layer", "lm_serve", "lm_blocks", "lm_train", "multi_device", "operators"):
         run(name, "build")
     run("operator_timing", "build", "operators")
     run("unfused_kernels", "build")
@@ -3738,6 +4087,7 @@ def main() -> int:
         "at": f"{TIMED_SCENARIO} B={BATCH} n_bits={N_BITS}",
         "call_ms": t["call_ms"],
         "router_launches": s.router_launches,
+        "multi_device_launches_per_rank": s.md_launches,
         "ms_b256": s.report["net_sweep"][TIMED_SCENARIO][MAX_BATCH]["ms"],
         "bound_ms_b256": s.report["net_sweep"][TIMED_SCENARIO][MAX_BATCH]["bound_ms"],
         "source_generated": "src/repro_torch/kernels/net_sweep/codegen.py",

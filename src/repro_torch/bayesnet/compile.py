@@ -33,13 +33,15 @@ the per-query MAP decisions: the fused kernel argmaxes its counts, the
 unfused program argmaxes the posterior -- the same decisions.
 
 ``device=`` names where the program runs and defaults to the card; asking for
-CUDA where there is none raises.  Multi-device launches are not ported yet
-and raise ``NotImplementedError``.
+CUDA where there is none raises.  ``devices=N``, or an ambient mesh, shards
+the fused sweep's frames over the ranks of the started process group
+(:func:`compile_network`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Sequence, Tuple
 
 import numpy as np
@@ -48,7 +50,8 @@ import torch
 from repro_torch.bayesnet.noise import NoiseModel, perturbed_cdf_rows
 from repro_torch.bayesnet.spec import NetworkSpec
 from repro_torch.core import bitops, cordiv, prng, rng
-from repro_torch.distributed.context import MULTI_DEVICE_TODO as _DEVICES_TODO
+from repro_torch.distributed import context as dist_context
+from repro_torch.distributed import sharding as dist_sharding
 from repro_torch.kernels import backend
 from repro_torch.kernels.net_sweep import SweepPlan, net_sweep
 from repro_torch.kernels.net_sweep import kernel as net_sweep_kernel
@@ -180,6 +183,8 @@ class CompiledNetwork:
     ``b``'s evidence, the effective sample count.  ``plan`` is the fused
     program's :class:`SweepPlan` (``None`` when unfused); ``tables`` holds the
     unfused program's per-node tables on ``device`` (``None`` when fused).
+    ``mesh`` / ``shard_axes`` / ``n_shards`` describe the frame sharding of a
+    fused program (:func:`compile_network`'s ``devices``).
     """
 
     spec: NetworkSpec
@@ -193,6 +198,8 @@ class CompiledNetwork:
     plan: SweepPlan | None = dataclasses.field(repr=False)
     device: torch.device
     n_shards: int = 1
+    shard_axes: Tuple[str, ...] = ()
+    mesh: object = dataclasses.field(default=None, repr=False, compare=False)
     noise: NoiseModel | None = None
     drift_epochs: int = 1
     program: dict | None = dataclasses.field(default=None, repr=False, compare=False)
@@ -220,7 +227,7 @@ class CompiledNetwork:
         ev = self._check_frames(ev_frames)
         if not self.fused:
             return self._run_unfused(key, ev)
-        numer, denom = net_sweep(key, ev, plan=self.plan, n_bits=self.n_bits)
+        numer, denom = self._sweep(key, ev, False)
         return self._assemble(numer, denom), denom
 
     def decide(self, key, ev_frames) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -235,9 +242,33 @@ class CompiledNetwork:
         if not self.fused:
             post, denom = self._run_unfused(key, ev)
             return post, posterior_argmax(post), denom
-        numer, denom, dec = net_sweep(key, ev, plan=self.plan, n_bits=self.n_bits,
-                                      decide=True)
+        numer, denom, dec = self._sweep(key, ev, True)
         return self._assemble(numer, denom), dec, denom
+
+    def _sweep(self, key, ev: torch.Tensor, decide: bool):
+        """One sweep launch: sharded over the frame axis when it divides.
+
+        Each rank launches ``net_sweep`` on its slice of the global batch
+        with the slice's global frame origin, so the sharded launch is bit
+        for bit the single one; the outputs are gathered over the world and
+        every rank returns the whole batch's.  A batch the shard count does
+        not divide runs unsharded on every rank.
+        """
+        b = ev.shape[0]
+        if self.mesh is None or self.n_shards <= 1 or b % self.n_shards:
+            return net_sweep(key, ev, plan=self.plan, n_bits=self.n_bits, decide=decide)
+        per = b // self.n_shards
+        idx = _shard_index(self.mesh, self.shard_axes, self.mesh.get_coordinate())
+        outs = net_sweep(key, ev[idx * per:(idx + 1) * per], plan=self.plan, n_bits=self.n_bits,
+                         frame0=(idx * per) & 0xFFFFFFFF, total_frames=b, decide=decide)
+        cols = [o.reshape(per, -1) for o in outs]
+        whole = _gather_frames(self.mesh, self.shard_axes, torch.cat(cols, dim=1), b)
+        out, at = [], 0
+        for o, c in zip(outs, cols):
+            part = whole[:, at:at + c.shape[1]]
+            out.append(part.reshape((b,) + tuple(o.shape[1:])))
+            at += c.shape[1]
+        return tuple(out)
 
     def _run_unfused(self, key, ev: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The per-node program: lower every node, condition, estimate."""
@@ -253,6 +284,36 @@ class CompiledNetwork:
         _, post = cordiv.cordiv_fill(numer & accept[:, None, :], accept[:, None, :],
                                      self.n_bits)
         return _slot_assembler(self.query_cards)(post), denom
+
+
+def _shard_index(mesh, axes, coord) -> int:
+    """A rank's frame shard from its mesh coordinate: row-major over
+    ``axes`` (``idx = idx * size + axis_index``), the reference's order."""
+    idx = 0
+    for a in axes:
+        dim = mesh.mesh_dim_names.index(a)
+        idx = idx * mesh.shape[dim] + int(coord[dim])
+    return idx
+
+
+def _gather_frames(mesh, axes, part: torch.Tensor, b: int) -> torch.Tensor:
+    """Every rank's ``(per, cols)`` shard -> the ``(b, cols)`` whole, on every
+    rank.  One ``all_gather`` over the world, which the mesh spans; each
+    rank's slot is placed by its own mesh coordinate (:func:`_shard_index`),
+    so no group's rank order is assumed.  Ranks that differ only along other
+    axes hold equal shards; the first one is taken."""
+    dist = torch.distributed
+    parts = [torch.empty_like(part) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, part.contiguous())
+    per = part.shape[0]
+    whole = part.new_empty((b, part.shape[1]))
+    done = set()
+    for r, got in enumerate(parts):
+        idx = _shard_index(mesh, axes, (mesh.mesh == r).nonzero()[0].tolist())
+        if idx not in done:
+            whole[idx * per:(idx + 1) * per] = got
+            done.add(idx)
+    return whole
 
 
 def _slot_indicators(streams, queries, q_cards) -> tuple:
@@ -459,6 +520,16 @@ def compile_network(
     ``drift_epochs`` / ``program`` shape the plan as in :func:`sweep_plan`.
     ``trace`` records the lowering as a ``compile_network`` span carrying
     :func:`network_stats`.
+
+    ``devices=N`` (fused only) shards the sweep's frames over the N ranks of
+    the started process group, one ``net_sweep`` launch per rank on its
+    slice; with no ``devices`` argument an ambient
+    :func:`~repro_torch.distributed.context.mesh_context` mesh is picked up,
+    sharding over its batch axes.  Each shard folds its *global* frame origin
+    into the entropy counters, so the sharded program is bit-identical to the
+    single-device one, and every rank gets the whole batch's results.  A
+    batch the shard count does not divide runs unsharded on every rank.
+    Every rank compiles the same network and makes the same calls.
     """
     if trace is not None:
         with trace.span("compile_network", network=spec.name, n_bits=n_bits) as sp:
@@ -533,18 +604,46 @@ def compile_network(
             program=program, mux_mode=mux_mode,
             tables=_node_tables(spec, noise, program, dev, mux_mode),
         )
-    if devices is not None and int(devices) > 1:
-        raise NotImplementedError(
-            f"devices={devices}: multi-device launches are not ported yet: {_DEVICES_TODO}"
-        )
     plan = sweep_plan(spec, queries, evidence, noise=noise,
                       drift_epochs=drift_epochs, program=program)
+    mesh, shard_axes = _resolve_frame_mesh(devices, dev)
     if dev.type == "cuda":
         # build the plan's kernel now, so that no launch waits on nvcc
         net_sweep_kernel.prepare([plan])
     return CompiledNetwork(
         spec=spec, queries=queries, evidence=evidence, n_bits=n_bits,
         share_entropy=False, estimator=estimator, fused=True,
-        query_cards=q_cards, plan=plan,
-        device=dev, noise=noise, drift_epochs=drift_epochs, program=program,
+        query_cards=q_cards, plan=plan, device=dev,
+        n_shards=math.prod(mesh.shape[mesh.mesh_dim_names.index(a)] for a in shard_axes),
+        shard_axes=shard_axes, mesh=mesh,
+        noise=noise, drift_epochs=drift_epochs, program=program,
     )
+
+
+def _resolve_frame_mesh(devices, dev: torch.device):
+    """Mesh + frame-sharding axes for ``compile_network(devices=...)``.
+
+    ``devices=N`` builds the 1-D ``frames`` mesh over the started world of N
+    ranks (:func:`~repro_torch.distributed.context.frame_mesh`);
+    ``devices=None`` picks up the ambient mesh, sharding over its batch axes.
+    Returns ``(None, ())`` when there is nothing to shard over (one device,
+    no mesh, or no batch axis of size above 1 in the mesh).
+    """
+    if devices is not None:
+        if int(devices) == 1:
+            return None, ()
+        mesh = dist_context.frame_mesh(int(devices), device=dev)
+        return mesh, ("frames",)
+    mesh = dist_context.current_mesh()
+    if mesh is None:
+        return None, ()
+    if mesh.device_type != dev.type:
+        raise ValueError(f"the ambient mesh is on {mesh.device_type!r}, the network on {dev}")
+    if mesh.size() != dist_context.world_size():
+        raise ValueError(f"the ambient mesh spans {mesh.size()} of the world's "
+                         f"{dist_context.world_size()} ranks; the sweep gathers over the world")
+    axes = tuple(a for a in dist_sharding.batch_axes(mesh) if a in mesh.mesh_dim_names)
+    sizes = dist_sharding.mesh_sizes(mesh)
+    if not axes or math.prod(sizes[a] for a in axes) <= 1:
+        return None, ()
+    return mesh, axes

@@ -356,7 +356,7 @@ class FrameDriver:
                 self.net.spec, n_bits, self.net.queries, self.net.evidence,
                 share_entropy=self.net.share_entropy,
                 estimator=self.net.estimator, fused=self.net.fused,
-                noise=self.net.noise, device=self.net.device, trace=self.trace,
+                noise=self.net.noise, devices=1, device=self.net.device, trace=self.trace,
                 drift_epochs=self.net.drift_epochs, program=self.net.program,
             )
         return self._nets[attempt]

@@ -1,38 +1,131 @@
-"""Ambient mesh context, its single-device half.
+"""Ambient mesh context: lets model code apply sharding constraints and the
+expert-parallel path without threading the mesh through every call.
 
-Model code calls :func:`constrain` at the points where the reference pins a
-sharding, and :func:`batch_axes` where it asks which mesh axes carry the
-batch.  With no mesh active both are the identity, and that is the only state
-the port has so far: one card, no mesh.  Entering a mesh raises.
+A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with the reference's
+axis names (``frames``; ``data``, ``model``; ``pod``) over the default process
+group, one rank per device (``torchrun``, or ``torch.multiprocessing.spawn``).
+Every rank runs the same program on the same global inputs, as the
+reference's single controller does; a sharded entry point returns the global
+result on every rank.
+
+Launchers do ``with mesh_context(mesh): api.loss(...)``.  Inside, a plain
+tensor that meets a DTensor counts as replicated on every rank (DTensor's
+``implicit_replication``): every rank computes it alike.  When no mesh is
+active every helper is a no-op, so single-device code runs the same path.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import math
 from typing import Optional, Tuple
 
-MULTI_DEVICE_TODO = "ROADMAP queue 1 item 5 (multi-device launch)"
+import torch
+
+from repro_torch.distributed import sharding as _sharding
+
+_MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
 
 
 def current_mesh() -> Optional[object]:
-    """The active mesh: always ``None`` (the port runs on one card)."""
-    return None
+    """The ambient ``DeviceMesh``, or ``None``."""
+    return _MESH.get()
 
 
+@contextlib.contextmanager
 def mesh_context(mesh):
-    """Make ``mesh`` the ambient mesh: not ported."""
-    raise NotImplementedError(f"mesh_context: meshes are not ported yet: {MULTI_DEVICE_TODO}")
+    """Make ``mesh`` the ambient mesh inside the ``with`` block."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    token = _MESH.set(mesh)
+    try:
+        with implicit_replication():
+            yield mesh
+    finally:
+        _MESH.reset(token)
 
 
-def frame_mesh(devices: int | None = None):
-    """1-D mesh over the frame axis: not ported."""
-    raise NotImplementedError(f"frame_mesh: meshes are not ported yet: {MULTI_DEVICE_TODO}")
+def world_size() -> int:
+    """Ranks of the started default process group (1 when none is started)."""
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def frame_mesh(devices: int | None = None, *, device="cuda"):
+    """1-D ``DeviceMesh`` over the started world, axis ``"frames"``.
+
+    The frame axis is the embarrassingly parallel batch dimension of the
+    bayesnet sweep (``compile_network(devices=...)`` shards over it).  The
+    reference takes the first ``devices`` local devices of one process; here
+    each device is a rank of the default process group, so ``devices`` must
+    be the world's size (``None`` takes it).  With no group started there is
+    one device and nothing to shard: ``devices`` of ``None`` or 1 give
+    ``None``.  ``device`` names the mesh's device type (the ranks' device).
+    """
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels import backend
+
+    n_world = world_size()
+    n = n_world if devices is None else int(devices)
+    if not (torch.distributed.is_available() and torch.distributed.is_initialized()):
+        if n == 1:
+            return None
+        raise ValueError(f"devices={devices} needs a started process group of {n} ranks; "
+                         f"none is started (one device)")
+    if n != n_world:
+        raise ValueError(f"devices={devices} differs from the started world's "
+                         f"{n_world} ranks")
+    dev = backend.resolve_device(device)
+    return init_device_mesh(dev.type, (n,), mesh_dim_names=("frames",))
 
 
 def batch_axes() -> Tuple[str, ...]:
-    """Mesh axes that carry the batch: none without a mesh."""
-    return ()
+    mesh = current_mesh()
+    if mesh is None:
+        return ()
+    return _sharding.batch_axes(mesh)
+
+
+def _resolve_spec(shape, spec, mesh) -> tuple:
+    """The reference's rules for a constraint's spec: ``"batch"`` expands to
+    the batch axes; axes unknown to the mesh or already used by an earlier dim
+    are dropped; a dim its axes' product does not divide is replicated."""
+    sizes = _sharding.mesh_sizes(mesh)
+    resolved = []
+    used: set = set()
+    for dim, s in enumerate(spec):
+        if s == "batch":
+            ax = _sharding.batch_axes(mesh)
+            s = ax if len(ax) > 1 else (ax[0] if ax else None)
+        if s is None:
+            resolved.append(None)
+            continue
+        axes = s if isinstance(s, tuple) else (s,)
+        axes = tuple(a for a in axes if a in sizes and a not in used)
+        if not axes:
+            resolved.append(None)
+            continue
+        if dim < len(shape) and shape[dim] % math.prod(sizes[a] for a in axes) == 0:
+            used.update(axes)
+            resolved.append(axes if len(axes) > 1 else axes[0])
+        else:
+            resolved.append(None)
+    return tuple(resolved)
 
 
 def constrain(x, *spec):
-    """A sharding constraint under the ambient mesh: ``x`` itself without one."""
-    return x
+    """Pin ``x``'s layout under the ambient mesh (the reference's
+    ``with_sharding_constraint``): a DTensor is redistributed to the resolved
+    spec (:func:`_resolve_spec`), every axis it does not name replicated.  A
+    plain tensor, or any tensor with no mesh, is returned as it is."""
+    mesh = current_mesh()
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    place = _sharding.placements(_resolve_spec(tuple(x.shape), spec, mesh), mesh)
+    return x if tuple(x.placements) == place else x.redistribute(mesh, place)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import prng
+from repro_torch.distributed import context as dctx
 from repro_torch.kernels import backend
 
 
@@ -190,6 +191,10 @@ def multihead_attention(
     NaN), and the weights cast to ``v``'s dtype before the value product.
     Queries go in blocks of ``q_chunk`` (the reference maps over them).
     """
+    # under a mesh: DTensor has no rule for the score einsum with the batch
+    # and the heads both sharded (it flattens them), so the heads are
+    # replicated here and the batch stays sharded
+    q, k, v = (dctx.constrain(t, "batch", None, None, None) for t in (q, k, v))
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     group = h // kvh

@@ -21,13 +21,16 @@ an order decides a result:
   with atomics in no fixed order, so each token's k slots are gathered and
   reduced here in that order instead.
 
-The expert-parallel ``shard_map`` path of the reference runs under a mesh
-only; meshes are not ported (``distributed/context.py``), and ``moe_apply``
-raises if one is ever present.
+Under an ambient mesh with a ``model`` axis (``impl="masked"``, experts
+divisible by it), ``moe_apply`` takes the reference's expert-parallel
+``shard_map`` path (:func:`_moe_ep`): tokens sharded over the batch axes,
+each rank's experts a ``model`` slice, the partial outputs summed over
+``model``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -95,11 +98,74 @@ def _expert_ffn(p, xe: torch.Tensor, mlp_kind: str) -> torch.Tensor:
 
 
 def moe_apply(params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out, aux_loss), on the local path (no mesh)."""
-    if dctx.current_mesh() is not None:
-        raise NotImplementedError(f"moe_apply under a mesh (expert parallelism): "
-                                  f"{dctx.MULTI_DEVICE_TODO}")
+    """x: (B, S, D) -> (out, aux_loss).
+
+    Under an ambient mesh with impl="masked" this runs the layer expert
+    parallel (:func:`_moe_ep`): tokens stay sharded over the batch axes
+    (replicated over `model`), experts are sharded over `model` (EP), and the
+    partial expert outputs are combined with one sum over `model` -- the
+    Megatron-style masked-EP collective.
+    """
+    mesh = dctx.current_mesh()
+    e = cfg.moe
+    if mesh is not None and e.impl == "masked" and "model" in mesh.mesh_dim_names \
+            and e.num_experts % mesh.shape[mesh.mesh_dim_names.index("model")] == 0:
+        out, aux = _moe_ep({k: params[k] for k in params.keys() if k != "shared"}, x, cfg, mesh)
+        if e.num_shared:
+            # the SHARED expert stays OUTSIDE the EP region: inside it would be
+            # recomputed per model shard; outside, it is an ordinary TP MLP
+            b, s, d = x.shape
+            shared = layers.apply_mlp(params["shared"], x.reshape(-1, d), cfg.mlp)
+            out = out + shared.reshape(b, s, d)
+        return out, aux
     return _moe_local(params, x, cfg)
+
+
+def _moe_ep(params, x, cfg, mesh):
+    """The reference's ``shard_map`` body on this rank's shards.
+
+    ``x`` and the params may be plain tensors (every rank holds the global
+    values) or DTensors; either way each is brought to this rank's block --
+    the batch slice of the tokens, the ``model`` slice of each expert leaf
+    (experts ``[r E/TP, (r+1) E/TP)``), the rest whole -- and the local
+    layer runs on plain tensors.  Its output is summed over ``model``, its
+    aux averaged over ``model`` (a batch shard's aux, as in the reference,
+    whose ``P()`` out spec keeps each shard's own).  The output is a DTensor
+    sharded over the batch axes if ``x`` was one, else the global tensor.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.distributed import sharding
+
+    names = mesh.mesh_dim_names
+    bax = dctx.batch_axes()
+    bsize = math.prod(mesh.shape[names.index(a)] for a in bax)
+    if bsize == 1 or x.shape[0] % bsize != 0:
+        bax = ()                                 # tiny batch (or one shard): replicate it
+    repl = [Replicate()] * len(names)
+
+    def block(t, dims):
+        """``t``'s block on this rank: ``dims`` = {mesh axis: tensor dim}."""
+        place = [Shard(dims[a]) if a in dims else Replicate() for a in names]
+        if not isinstance(t, DTensor):
+            return sharding.shard(t, mesh, place).to_local()
+        return t.redistribute(mesh, place).to_local()
+
+    xl = block(x, {a: 0 for a in bax})
+    pl = {k: block(v, {"model": 0} if k in ("wi", "wg", "wo") else {})
+          for k, v in params.items()}
+    e_local = pl["wi"].shape[0]
+    expert0 = mesh.get_local_rank("model") * e_local
+    out, aux = _moe_local(pl, xl, cfg, expert0=expert0)
+    part = [Shard(0) if a in bax else Partial("sum") if a == "model" else Replicate()
+            for a in names]
+    out = DTensor.from_local(out, mesh, part, run_check=False)
+    out = out.redistribute(mesh, [Replicate() if a == "model" else p
+                                  for a, p in zip(names, part)])
+    aux = DTensor.from_local(aux, mesh, [Partial("avg") if a == "model" else Replicate()
+                                         for a in names], run_check=False)
+    aux = aux.redistribute(mesh, repl).to_local()
+    return (out if isinstance(x, DTensor) else out.full_tensor()), aux
 
 
 def _combine(gathered: torch.Tensor, order: torch.Tensor, t: int, k: int) -> torch.Tensor:
@@ -115,7 +181,10 @@ def _combine(gathered: torch.Tensor, order: torch.Tensor, t: int, k: int) -> tor
     return out
 
 
-def _moe_local(params, x: torch.Tensor, cfg):
+def _moe_local(params, x: torch.Tensor, cfg, expert0: int | None = None):
+    """The layer on local tensors.  ``expert0`` (the EP path) says that
+    ``params`` hold only experts ``expert0 ..`` of the ``num_experts``: ids
+    outside them go to the overflow row and add nothing."""
     e = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -140,14 +209,18 @@ def _moe_local(params, x: torch.Tensor, cfg):
         gate.scatter_(1, ids, weights.to(out_e.dtype))
         out = torch.einsum("etd,te->td", out_e, gate)
     else:
-        # sort-based capacity dispatch
+        # sort-based capacity dispatch over the experts this shard owns
         k = e.top_k
+        e_local = params["wi"].shape[0]          # = E, or E/TP on the EP path
         cap = int(e.capacity_factor * k * t / n_exp)
         # small-T floor (decode steps, smoke-scale prefill): below 64 assignments
         # run dropless, so keep/drop never depends on the sequence length and
         # prefill(t-1) stays consistent with teacher-forced forward(t)
         cap = max(cap, min(t * k, 64))
         flat_ids = ids.reshape(-1)                               # (T*k,)
+        if expert0 is not None:
+            flat_ids = flat_ids - expert0                        # local ids; others -> oob
+            flat_ids = torch.where((flat_ids < 0) | (flat_ids >= e_local), e_local, flat_ids)
         flat_w = weights.reshape(-1).to(x.dtype)
         tok_ix = torch.arange(t, device=x.device).repeat_interleave(k)   # source token
         order = torch.argsort(flat_ids, stable=True)             # stable group-by
@@ -155,14 +228,15 @@ def _moe_local(params, x: torch.Tensor, cfg):
         stok = tok_ix[order]
         sw = flat_w[order]
         # position within expert group
-        grp_start = torch.searchsorted(sid, torch.arange(n_exp + 1, device=x.device), side="left")
-        pos_in_e = torch.arange(t * k, device=x.device) - grp_start[torch.clamp(sid, 0, n_exp)]
-        keep = (pos_in_e < cap) & (sid < n_exp)                  # capacity drop
-        dst_e = torch.where(keep, sid, n_exp)                    # overflow row
+        grp_start = torch.searchsorted(sid, torch.arange(e_local + 1, device=x.device),
+                                       side="left")
+        pos_in_e = torch.arange(t * k, device=x.device) - grp_start[torch.clamp(sid, 0, e_local)]
+        keep = (pos_in_e < cap) & (sid < e_local)                # capacity drop
+        dst_e = torch.where(keep, sid, e_local)                  # overflow row
         dst_c = torch.where(keep, pos_in_e % cap, 0)
-        buf = torch.zeros((n_exp + 1, cap, d), dtype=x.dtype, device=x.device)
+        buf = torch.zeros((e_local + 1, cap, d), dtype=x.dtype, device=x.device)
         buf[dst_e, dst_c] = xt[stok]        # duplicates only in the dropped overflow row
-        out_buf = _expert_ffn(params, buf[:n_exp], cfg.mlp)
+        out_buf = _expert_ffn(params, buf[:e_local], cfg.mlp)
         out_buf = torch.cat([out_buf, torch.zeros_like(out_buf[:1])], dim=0)
         # combine: gather each (token, k) slot's expert output, weight, sum
         gathered = out_buf[dst_e, dst_c] * sw[:, None]           # (T*k, D)

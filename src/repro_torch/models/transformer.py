@@ -285,6 +285,10 @@ def forward(
             x, aux = superblock(x, r)
         aux_total = aux_total + aux
     h = layers.apply_norm(params["final_norm"], x, cfg.norm)
+    # under a mesh: DTensor has no rule for the unembed matmul's flatten of
+    # (batch, seq) with both sharded (the residual stream is sequence-sharded
+    # under cfg.seq_shard), so the sequence is gathered here
+    h = dctx.constrain(h, "batch", None, None)
     if return_hidden:
         return h, aux_total
     return h @ _unembed(params, cfg), aux_total
@@ -315,7 +319,10 @@ def loss_fn(params: Params, cfg, batch: Dict[str, torch.Tensor]):
     if extra is not None:
         h = h[:, extra.shape[1]:]          # loss only over text positions
     unembed = _unembed(params, cfg)
-    loss = _nll((h @ unembed).float(), labels).mean()
+    # keep the big logits tensor vocab-sharded over `model` (the softmax then
+    # reduces across shards rather than materialising (B, S, V) per device)
+    logits = dctx.constrain((h @ unembed).float(), "batch", None, "model")
+    loss = _nll(logits, labels).mean()
     metrics = {"nll": loss, "aux": aux}
     if cfg.mtp_heads and "mtp" in params:
         # multi-token prediction: predict t+2 from [h_t ; emb(t+1)]

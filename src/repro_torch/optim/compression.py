@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
-from repro_torch.distributed.context import MULTI_DEVICE_TODO
+from repro_torch.distributed import context as dctx
 from repro_torch.models import convert
 
 INT8_MAX = 127.0
@@ -77,8 +77,27 @@ def decompress(q_tree: Dict[str, torch.Tensor], scales: Dict[str, torch.Tensor])
     return {k: q.to(torch.float32) * scales[k] for k, q in q_tree.items()}
 
 
-def compressed_mean(key, grads, residual, axis_name: str):
-    """All-reduce-mean of int8-encoded grads over ``axis_name``: needs a
-    collective over a mesh, which the port does not have yet."""
-    raise NotImplementedError(f"compressed_mean over {axis_name!r}: the all-reduce needs a "
-                              f"mesh: {MULTI_DEVICE_TODO}")
+def compressed_mean(key, grads, residual, axis_name: str, mesh=None):
+    """All-reduce-mean of int8-encoded grads over the mesh axis ``axis_name``
+    (of ``mesh``, or the ambient mesh).  Returns (mean grads fp32, new
+    residual).
+
+    The reference's arithmetic inside its ``shard_map``: each rank encodes
+    its own gradients with the same ``key``, the int8 codes are summed over
+    the axis as float32 (exact for sums this small), and each rank scales
+    the sum by ITS OWN scale and divides by the axis size: ``x * sc / n``.
+    So the result differs from rank to rank, as in the reference.
+    """
+    mesh = dctx.current_mesh() if mesh is None else mesh
+    if mesh is None or axis_name not in mesh.mesh_dim_names:
+        raise ValueError(f"compressed_mean over {axis_name!r} needs a mesh with that axis, "
+                         f"got {mesh}")
+    q, s, new_res = compress(key, grads, residual)
+    group = mesh.get_group(axis_name)
+    n = mesh.shape[mesh.mesh_dim_names.index(axis_name)]
+    mean = {}
+    for name, x in q.items():
+        summed = x.to(torch.float32)
+        torch.distributed.all_reduce(summed, group=group)
+        mean[name] = summed * s[name] / n
+    return mean, new_res

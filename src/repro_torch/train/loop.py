@@ -4,8 +4,9 @@
 repetition of the block stack recomputed under ``torch.utils.checkpoint``,
 the reference's ``jax.checkpoint``), then ``adamw.apply`` in place;
 ``TrainLoop`` drives data, checkpointing, preemption, straggler watch and
-loss-spike rewind.  One device, no mesh: the reference's shardings are the
-identity there.
+loss-spike rewind.  ``TrainLoop(mesh=...)`` keeps the mesh, as the
+reference's does, and runs the same single-device step: the reference's
+``run`` jits its step without shardings.
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ import torch
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.data.pipeline import DataConfig, batch_at_step
 from repro_torch.distributed import fault
-from repro_torch.distributed.context import MULTI_DEVICE_TODO
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import api
 from repro_torch.optim import adamw
@@ -97,9 +97,6 @@ class TrainLoop:
         *,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(f"TrainLoop(mesh=...): meshes are not ported yet: "
-                                      f"{MULTI_DEVICE_TODO}")
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.data_cfg = data_cfg

@@ -17,3 +17,7 @@ def pytest_configure(config):
         "markers",
         "cuda: needs an NVIDIA GPU; skipped where torch.cuda.is_available() is False",
     )
+    config.addinivalue_line(
+        "markers",
+        "dist: spawns a world of gloo ranks in a subprocess (tests/torch_dist.py)",
+    )

@@ -211,12 +211,18 @@ def test_moe_init_equals_reference():
 
 
 def test_moe_under_a_mesh_raises_naming_the_multi_device_item(monkeypatch):
-    from repro_torch.distributed import context
+    """Under a mesh with no `model` axis the layer takes the local path, as
+    the reference's does (the expert-parallel path is held on gloo worlds in
+    ``test_torch_dist_models.py``)."""
+    from repro_torch.distributed import context, sharding
     cfg = get_smoke_config("llama4-scout-17b-a16e")
     params = moe.moe_init(_kd(jax.random.PRNGKey(0)), cfg, device="cpu")
-    monkeypatch.setattr(context, "current_mesh", lambda: object())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        moe.moe_apply(params, torch.zeros(1, 2, cfg.d_model, dtype=torch.bfloat16), cfg)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 2, cfg.d_model))
+                         .astype(np.float32)).to(torch.bfloat16)
+    want, want_aux = moe.moe_apply(params, x, cfg)
+    monkeypatch.setattr(context, "current_mesh", lambda: sharding.MeshShape((2,), ("frames",)))
+    got, aux = moe.moe_apply(params, x, cfg)
+    assert torch.equal(got, want) and torch.equal(aux, want_aux)
 
 
 # --------------------------------------------------------------------------- mla

@@ -513,7 +513,9 @@ def test_checkpointed_forward_equals_plain_forward():
 # --- the single-device scope ------------------------------------------------------
 
 def test_context_is_the_single_device_half():
-    """No mesh: constrain is the identity, no batch axes; meshes raise."""
+    """No mesh: constrain is the identity, no batch axes; with no process
+    group started there is one device, so ``frame_mesh`` of 1 is no mesh and
+    of more raises."""
     from repro.distributed import context as jcontext
     from repro_torch.distributed import context
     x = torch.arange(6).reshape(2, 3)
@@ -521,9 +523,11 @@ def test_context_is_the_single_device_half():
     assert context.batch_axes() == jcontext.batch_axes() == ()
     assert context.constrain(x, "batch", "model") is x
     assert jcontext.constrain(x, "batch", "model") is x
-    for fn in (lambda: context.mesh_context(None), context.frame_mesh):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-            fn()
+    with context.mesh_context(None):
+        assert context.current_mesh() is None and context.constrain(x, "batch") is x
+    assert context.frame_mesh() is None and context.frame_mesh(1) is None
+    with pytest.raises(ValueError, match="devices=2 needs a started process group"):
+        context.frame_mesh(2)
 
 
 def test_entry_points_default_to_the_card():

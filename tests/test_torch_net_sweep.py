@@ -288,13 +288,15 @@ def test_compile_defaults_to_the_card_and_never_falls_back():
     dict(mux_mode="rows"), dict(devices=2),
 ])
 def test_unported_lowerings_raise_and_name_the_roadmap(kwargs):
-    """What the port still refuses: multi-device launches raise and name
-    their ROADMAP item.  The four unfused options compile since the unfused
-    lowering was ported (``test_torch_unfused.py`` holds them against the
-    reference); with ``devices=2`` each raises the reference's ValueError."""
+    """What the port refuses: ``devices=2`` with no process group of 2 ranks
+    started (the sharded sweep is held on gloo worlds in
+    ``test_torch_dist_sweep.py``).  The four unfused options compile since
+    the unfused lowering was ported (``test_torch_unfused.py`` holds them
+    against the reference); with ``devices=2`` each raises the reference's
+    ValueError."""
     spec = T.by_name("lane-change")
     if "devices" in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
+        with pytest.raises(ValueError, match="needs a started process group of 2 ranks"):
             T.compile_network(spec, n_bits=64, device="cpu", **kwargs)
         return
     assert not T.compile_network(spec, n_bits=64, device="cpu", **kwargs).fused

@@ -362,8 +362,11 @@ def test_compressed_grads_converge():
 
 def test_train_loop_refuses_a_mesh_and_a_missing_card(tmp_path):
     cfg, data_cfg, train_cfg, opt_cfg = _small_setup(tmp_path)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        TrainLoop(cfg, data_cfg, train_cfg, opt_cfg, mesh=object(), device="cpu")
+    from repro_torch.distributed import sharding
+
+    mesh = sharding.MeshShape((1, 2), ("data", "model"))
+    # the reference's loop keeps the mesh and jits its step without shardings
+    assert TrainLoop(cfg, data_cfg, train_cfg, opt_cfg, mesh=mesh, device="cpu").mesh is mesh
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TrainLoop(cfg, data_cfg, train_cfg, opt_cfg)

@@ -294,7 +294,7 @@ def test_compression_error_feedback():
 
 
 def test_compressed_mean_needs_a_mesh():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         compression.compressed_mean(prng.PRNGKey(0), {}, {}, "data")
 
 

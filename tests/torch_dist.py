@@ -1,0 +1,300 @@
+"""Run a world of gloo ranks for a test, and the worlds the tests run.
+
+``run_world(world, n, tmp_path, **kw)`` starts a subprocess that spawns ``n``
+ranks (``torch.multiprocessing.spawn``).  Each rank sets one thread, joins a
+gloo process group through a file under ``tmp_path`` (parallel test workers
+never share a port), calls the world function ``world`` of this module as
+``world(rank, n, **kw)`` and writes the dict of arrays it returns to
+``rank<r>.npz``.  The whole world runs under a timeout, in a session of its
+own that is killed if the timeout passes, so a hung collective fails its test
+instead of holding the suite; each rank's group also times out on its own.
+``run_world`` returns the ranks' dicts in rank order.
+
+The world functions import torch, numpy and ``repro_torch`` only; the tests
+hold their results against the JAX reference in the test process.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import pathlib
+import signal
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+WORLD_TIMEOUT = 360          # seconds for a whole spawned world
+GROUP_TIMEOUT = 150          # seconds a rank waits in a collective
+
+
+def run_world(world: str, n: int, tmp_path, timeout: float = WORLD_TIMEOUT, **kw) -> list:
+    """Run ``world`` on ``n`` gloo ranks; returns each rank's result dict."""
+    tmp = pathlib.Path(tmp_path)
+    args = tmp / f"{world}.npz"
+    np.savez(args, **{k: np.asarray(v) for k, v in kw.items()})
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]))
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    proc = subprocess.Popen([sys.executable, __file__, world, str(n), str(tmp)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"world {world} on {n} ranks passed its {timeout} s:\n{out[-4000:]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"world {world} on {n} ranks failed ({proc.returncode}):\n"
+                             f"{out[-6000:]}")
+    return [dict(np.load(tmp / f"{world}.rank{r}.npz")) for r in range(n)]
+
+
+def _rank_main(rank: int, n: int, world: str, tmp: str):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/{world}.init", rank=rank,
+                            world_size=n, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
+    try:
+        kw = {k: v for k, v in np.load(f"{tmp}/{world}.npz").items()}
+        res = globals()[world](rank, n, **kw)
+        np.savez(f"{tmp}/{world}.rank{rank}.npz", **{k: np.asarray(v) for k, v in res.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def _np(t) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+# --------------------------------------------------------------------------- worlds
+
+def sweep(rank, n, key, n_bits, mesh_shape, mesh_names, names, **ev):
+    """``compile_network`` sharded over the world, per scenario of ``names``
+    (evidence ``ev[name]``): ``devices=n`` and ``devices=None`` under
+    ``mesh_context`` of a mesh of ``mesh_shape`` (sharding over its batch
+    axes), run and decide beside the unsharded network; a batch the shards do
+    not divide; a recalibrated sharded network; and shards whose frame
+    origins wrap the 2**32 counters, gathered as the sharded launch gathers."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.bayesnet import NoiseModel, by_name, compile_network, recalibrated_network
+    from repro_torch.bayesnet import compile as C
+    from repro_torch.distributed import context as dctx
+    from repro_torch.kernels.net_sweep import net_sweep
+
+    n_bits = int(n_bits)
+    mesh = init_device_mesh("cpu", tuple(int(s) for s in mesh_shape),
+                            mesh_dim_names=tuple(str(a) for a in mesh_names))
+    out = {}
+    for name in (str(x) for x in names):
+        spec, frames = by_name(name), ev[name]
+        single = compile_network(spec, n_bits=n_bits, device="cpu")
+        shard = compile_network(spec, n_bits=n_bits, devices=n, device="cpu")
+        with dctx.mesh_context(mesh):
+            ambient = compile_network(spec, n_bits=n_bits, device="cpu")
+        out[f"{name}.shards"] = np.array([shard.n_shards, ambient.n_shards])
+        out[f"{name}.axes"] = np.array(["/".join(shard.shard_axes), "/".join(ambient.shard_axes)])
+        for tag, net in (("single", single), ("devices", shard), ("ambient", ambient)):
+            p, a = net.run(key, frames)
+            pd, d, ad = net.decide(key, frames)
+            out.update({f"{name}.{tag}.post": _np(p), f"{name}.{tag}.acc": _np(a),
+                        f"{name}.{tag}.dpost": _np(pd), f"{name}.{tag}.dec": _np(d),
+                        f"{name}.{tag}.dacc": _np(ad)})
+        p_odd, a_odd = shard.run(key, frames[:frames.shape[0] - 3])
+        out[f"{name}.odd.post"], out[f"{name}.odd.acc"] = _np(p_odd), _np(a_odd)
+    spec = by_name("intersection")
+    noisy = compile_network(spec, n_bits=n_bits, devices=n, noise=NoiseModel.nominal(),
+                            device="cpu")
+    recal = recalibrated_network(noisy, 3.0)
+    out["recal.shards"] = np.int32(recal.n_shards)
+    out["recal.post"] = _np(recal.run(key, ev["intersection"])[0])
+    # shards of a batch whose node offsets and frame counters wrap 2**32
+    frames = torch.from_numpy(ev["intersection"])
+    b = frames.shape[0]
+    per, f0, total = b // n, 2**25 - 7, 2**25 + 9
+    net = compile_network(spec, n_bits=n_bits, devices=n, device="cpu")
+    idx = C._shard_index(net.mesh, net.shard_axes, net.mesh.get_coordinate())
+    part = net_sweep(key, frames[idx * per:(idx + 1) * per], plan=net.plan, n_bits=n_bits,
+                     frame0=f0 + idx * per, total_frames=total, decide=True)
+    whole = C._gather_frames(net.mesh, net.shard_axes,
+                             torch.cat([t.reshape(per, -1) for t in part], 1), b)
+    want = net_sweep(key, frames, plan=net.plan, n_bits=n_bits, frame0=f0, total_frames=total,
+                     decide=True)
+    out["wrap.got"] = _np(whole)
+    out["wrap.want"] = _np(torch.cat([t.reshape(b, -1) for t in want], 1))
+    # the example, at a small size; frame_mesh over the world and past it
+    from repro_torch.examples import sharded_sweep
+
+    r = sharded_sweep.run("cpu", frames=64, n_bits=128, reps=1, max_batch=16)
+    out["example"] = np.array([r["identical"], r["drained"], r["n_shards"], r["devices"]])
+    out["frame_mesh.names"] = np.array(dctx.frame_mesh(device="cpu").mesh_dim_names)
+    try:
+        dctx.frame_mesh(n + 1, device="cpu")
+    except ValueError as e:
+        out["frame_mesh.err"] = np.array(str(e))
+    return out
+
+
+def _mesh(shape, names, device="cpu"):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(device, tuple(int(x) for x in shape),
+                            mesh_dim_names=tuple(str(a) for a in names))
+
+
+def _tree(flat: dict, prefix: str) -> dict:
+    """``{"a.b": array}`` entries under ``prefix`` -> a nested dict of tensors."""
+    out: dict = {}
+    for k, v in flat.items():
+        if not k.startswith(prefix):
+            continue
+        *path, leaf = k[len(prefix):].split(".")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = torch.from_numpy(np.asarray(v))
+    return out
+
+
+def models(rank, n, moe_x, lm_tokens, grad, **flat):
+    """On a (2, 2) ("data", "model") world: the MoE layer local and expert
+    parallel; the smoke qwen2's loss unsharded and with params placed by
+    ``param_shardings`` under the mesh (recording each ``constrain`` call);
+    ``compressed_mean`` over ``data`` of this rank's gradient shard; and
+    ``constrain``'s fallbacks."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import prng
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding
+    from repro_torch.models import api, moe
+    from repro_torch.optim import compression
+
+    mesh = _mesh((2, 2), ("data", "model"))
+    out = {"coord": np.array(mesh.get_coordinate())}
+
+    # --- MoE: expert parallel over `model` == the local path ---------------
+    mcfg = get_smoke_config("llama4-scout-17b-a16e")
+    mcfg = dataclasses.replace(mcfg, moe=dataclasses.replace(mcfg.moe, num_experts=8,
+                                                             capacity_factor=8.0))
+    mp = _tree(flat, "moe.")
+    x = torch.from_numpy(moe_x)
+    with torch.no_grad():
+        logits = x.reshape(-1, x.shape[-1]) @ mp["router"]
+        out["moe.ids"] = _np(moe._router_probs(logits, mcfg.moe.router, mcfg.moe.top_k)[1])
+        out["moe.local"], out["moe.aux_local"] = map(_np, moe.moe_apply(mp, x, mcfg))
+        with dctx.mesh_context(mesh):
+            out["moe.ep"], out["moe.aux_ep"] = map(_np, moe.moe_apply(mp, x, mcfg))
+
+    # --- the sharded loss ----------------------------------------------------
+    cfg = get_smoke_config("qwen2-72b")
+    cfg = dataclasses.replace(cfg, d_model=64, num_heads=4, num_kv_heads=4)
+    params = api.init(cfg, prng.PRNGKey(0), device="cpu")
+    tokens = torch.from_numpy(lm_tokens)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    with torch.no_grad():
+        out["lm.plain"] = _np(api.loss(params, cfg, batch)[0])
+    sharding.distribute_params(params, mesh)
+    placed = {k: [str(p) for p in v.placements] for k, v in params.named_parameters()}
+    want = sharding.param_shardings(params, mesh)
+    assert all(placed[k] == [str(p) for p in want[k]] for k in placed), placed
+    bs = {k: sharding.shard(v, mesh, sharding.batch_sharding(mesh)) for k, v in batch.items()}
+    calls = []
+    plain_constrain = dctx.constrain
+
+    def recording(x, *spec):
+        y = plain_constrain(x, *spec)
+        calls.append((spec, tuple(x.shape),
+                      tuple(str(p) for p in y.placements) if isinstance(y, DTensor) else ()))
+        return y
+
+    dctx.constrain = recording
+    try:
+        with torch.no_grad(), dctx.mesh_context(mesh):
+            loss, metrics = api.loss(params, cfg, bs)
+    finally:
+        dctx.constrain = plain_constrain
+    out["lm.sharded"] = _np(loss)
+    out["lm.constrain"] = np.array([f"{s}|{sh}|{pl}" for s, sh, pl in calls])
+
+    # --- the sharded loss of an MoE model: its layers take the EP path ------
+    cfg = get_smoke_config("llama4-scout-17b-a16e")
+    params = api.init(cfg, prng.PRNGKey(0), device="cpu")
+    tokens = torch.from_numpy(lm_tokens % cfg.vocab_size)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    with torch.no_grad():
+        loss, metrics = api.loss(params, cfg, batch)
+        out["moe_lm.plain"], out["moe_lm.plain_nll"] = _np(loss), _np(metrics["nll"])
+        sharding.distribute_params(params, mesh)
+        bs = {k: sharding.shard(v, mesh, sharding.batch_sharding(mesh)) for k, v in batch.items()}
+        with dctx.mesh_context(mesh):
+            loss, metrics = api.loss(params, cfg, bs)
+        out["moe_lm.sharded"], out["moe_lm.sharded_nll"] = _np(loss), _np(metrics["nll"])
+
+    # --- compressed_mean over `data` ------------------------------------------
+    d = mesh.get_local_rank("data")
+    g = torch.from_numpy(grad)
+    rows = g.shape[0] // 2
+    shard = {"w": g[d * rows:(d + 1) * rows]}
+    mean, res = compression.compressed_mean(prng.PRNGKey(0), shard,
+                                            {"w": torch.zeros_like(shard["w"])}, "data", mesh)
+    out["cm.mean"], out["cm.res"] = _np(mean["w"]), _np(res["w"])
+
+    # --- constrain's fallbacks --------------------------------------------------
+    y = torch.arange(8 * 3 * 4, dtype=torch.float32).reshape(8, 3, 4)
+    yd = DTensor.from_local(y, mesh, [Replicate(), Replicate()], run_check=False)
+    cases = {"batch_vocab": ("batch", None, "model"), "unknown_axis": ("pod", None, "model"),
+             "indivisible": (None, "model", None), "used_twice": ("data", "data", "model"),
+             "tuple": (("data", "model"), None, None), "replicate": (None, None, None)}
+    with dctx.mesh_context(mesh):
+        for tag, spec in cases.items():
+            z = dctx.constrain(yd, *spec)
+            out[f"c.{tag}"] = np.array([str(p) for p in z.placements])
+            assert torch.equal(z.full_tensor(), y), tag
+        assert dctx.constrain(y, "batch", None, "model") is y        # a plain tensor
+    assert dctx.constrain(yd, "batch", None, "model") is yd          # no mesh
+    return out
+
+
+def pipeline(rank, n, x, w1, w2):
+    """GPipe on a (4, 2) ("pod", "data") world: the reference test's residual
+    MLP stages over `pod` (4 stages) and over `data` (the first 2 stages), at
+    1, 3 and all microbatches of ``x``; and the unpipelined oracle."""
+    from repro_torch.distributed.pipeline import pipeline_forward, reference_forward
+    from repro_torch.models import layers
+
+    mesh = _mesh((4, 2), ("pod", "data"))
+
+    def stage_fn(p, h):
+        return h + layers.gelu(h @ p["w1"]) @ p["w2"]
+
+    out = {"coord": np.array(mesh.get_coordinate())}
+    with torch.no_grad():
+        for axis, stages in (("pod", 4), ("data", 2)):
+            params = {"w1": torch.from_numpy(w1[:stages]), "w2": torch.from_numpy(w2[:stages])}
+            for m in (1, 3, x.shape[0]):
+                xt = torch.from_numpy(x[:m])
+                out[f"{axis}.{m}.pipe"] = _np(pipeline_forward(stage_fn, params, xt, mesh,
+                                                               axis=axis))
+                out[f"{axis}.{m}.ref"] = _np(reference_forward(stage_fn, params, xt))
+    return out
+
+
+if __name__ == "__main__":
+    import torch.multiprocessing as mp
+
+    world_name, n_ranks, tmp_dir = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+    mp.spawn(_rank_main, args=(n_ranks, world_name, tmp_dir), nprocs=n_ranks)
