@@ -179,7 +179,23 @@ Phases (any failure makes the script exit non-zero without the result line):
               DTensor's Shard -> Replicate uses on CUDA tensors.  Seconds and
               peak GB per rank per step.  Two ranks on one card measure the
               logic and gloo's host copies, not NVLink.
-14. operators -- the paper's fusion operators.  Each of ``sne_encode``,
+14. dryrun -- the H100-cluster dry run (``repro_torch.launch.dryrun``), its
+              processes under a timeout: (a) phi3-mini-3.8b x ``train_4k`` on
+              both production meshes (``h100x32x8``, ``h100x2x16x8``),
+              llama4-scout x ``decode_32k`` and ``paper-bayes-fusion`` x
+              ``train_4k``, each ``python -m repro_torch.launch.dryrun`` on a
+              fake world of 256 or 512 ranks under ``FakeTensorMode``: the
+              three roofline terms, the bottleneck, peak GB per GPU and trace
+              seconds, any ``ok: false`` failing the phase; (b) one rank, no
+              mesh: a phi3 train step at full width cut to 2 layers at
+              lm_train's batch (8 x 128) counted on real CUDA tensors and
+              counted fake -- FLOPs and bytes equal, the fake peak within 10 %
+              of ``torch.cuda.max_memory_allocated`` -- and a second step timed
+              with CUDA events beside the roofline's terms; (c) whole phi3 at
+              that batch on one GPU, counted fake: the memory terms of the
+              forward+backward and of the optimizer beside lm_train's measured
+              times.
+15. operators -- the paper's fusion operators.  Each of ``sne_encode``,
               ``pand_popcount``, ``bayes_decide`` and ``fusion_map`` against
               its plain torch version on the card (bit for bit; fusion_map
               within atol 2e-6, rtol 1e-5) at M 1..3, K 1, 2, 8, 16 and 33,
@@ -196,7 +212,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               decision (4096 decisions, M=K=2, 128 bits: fused, composed,
               ``bayes_decide_packed``); and the ``obstacle_fusion`` example
               flow at 64x64 (``examples.obstacle_fusion.run``).
-15. operator_timing -- device time per launch (``torch.profiler``, the L2
+16. operator_timing -- device time per launch (``torch.profiler``, the L2
               flushed before each launch) and per back-to-back call (CUDA
               events) of the four kernels at the full batch and at a
               65,536-pixel slice of it, beside their plain
@@ -209,7 +225,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               bound counts the shared body's least integer work per entropy
               word, logic on the 64 ALU lanes of an SM and multiplies and
               adds free to use all 128, as ``net_sweep``'s.
-16. unfused_kernels -- the ``node_mux`` kernels against their plain versions
+17. unfused_kernels -- the ``node_mux`` kernels against their plain versions
               on the card, bit for bit: gather and rows at 0 to 6 parents
               (per-row tables and shared rows holding thresholds 0, 128, 256
               and the half steps) and at 7 and 8 (the gather on the
@@ -218,7 +234,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               (per-row and shared tables; 6 binary parents at k = 2) and
               its wide path at 9 planes and at 17 parents, k-ary roots, and
               counter origins that wrap 2**32.
-17. unfused_path -- the unfused lowering through its entry points at
+18. unfused_path -- the unfused lowering through its entry points at
               n_bits=4096, B=1024, counts reset just before and read just
               after: 7 scenarios x {``fused=False``, ``share_entropy=True``},
               ``mux_mode='rows'`` on the 4 binary scenarios and
@@ -229,12 +245,12 @@ Phases (any failure makes the script exit non-zero without the result line):
               Then the unfused, shared-entropy and fused posteriors against the
               enumeration oracle: per distinct evidence vector, the posterior
               pooled over its frames within 4.5 sqrt(p (1-p) / accepted).
-18. wide_path -- the wide network through ``compile_network`` fused,
+19. wide_path -- the wide network through ``compile_network`` fused,
               ``fused=False``, ``share_entropy=True`` and ``mux_mode='rows'`` at
               n_bits=4096, B=1024, each ``decide`` bit-equal to
               ``device="cpu"``; counts reset just before and read just after,
               and each wide kernel must have launched.
-19. unfused_timing -- device time per launch and per back-to-back call of the
+20. unfused_timing -- device time per launch and per back-to-back call of the
               node_mux kernels at B=1024 and B=65,536 (n_bits=4096; the wide
               paths at B=256) beside their plain versions and bounds; launches
               of each kernel per unfused ``run`` of each scenario; wall time per
@@ -328,6 +344,12 @@ from repro_torch.kernels.sne_encode.ref import sne_encode_ref  # noqa: E402
 from repro_torch.distributed.fault import LaunchFaultInjector  # noqa: E402
 from repro_torch.obs import PAPER_BUDGET_MS  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import dryrun as dryrun_mod  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+# the H100 SXM5 data sheet's HBM rate and dense bf16 peak (repro_torch/launch/mesh.py)
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_PEAK_FLOPS  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.data import DataConfig, batch_at_step  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
@@ -352,7 +374,6 @@ DISPATCH_LANES_PER_SM = 128
 SASS_ALU = {"LOP3", "LOP", "SHF", "SHL", "SHR", "ISETP", "SEL", "POPC", "PRMT", "FLO",
             "BREV", "BMSK", "IMNMX", "IABS"}
 SASS_MULADD = {"IMAD", "IADD3", "IADD", "LEA", "VIADD", "IMUL"}
-HBM_BYTES_PER_S = 3.35e12             # H100 SXM HBM3 (NVIDIA data sheet)
 TIMED_SCENARIO = "intersection"       # the largest network: the kernels line's numbers
 F32_FLOPS_PER_S = 67e12               # H100 SXM float32 outside the tensor cores (data sheet)
 # The least integer work per entropy word of sne_encode / bayes_decide (their
@@ -1209,7 +1230,6 @@ TRAIN_ARCH = "phi3-mini-3.8b"
 TRAIN_STEPS = 6                       # step ms is the median of steps 2-5
 TRAIN_TIMED = slice(2, TRAIN_STEPS)
 TRAIN_BATCH, TRAIN_SEQ = 8, 128       # the launcher's --global-batch and --seq-len
-BF16_PEAK_FLOPS = 989e12              # H100 SXM dense bf16 (NVIDIA data sheet)
 TRAIN_CUT = dict(num_layers=2)        # card against CPU and the checkpoint cycle: full width
 TRAIN_CUT_BATCH, TRAIN_CUT_SEQ = 2, 64
 TRAIN_RESUME_STEPS = 4                # the checkpoint cycle: stop at 2, resume to 4
@@ -1906,6 +1926,89 @@ def _md_world(n, backend_name, steps):
                 if proc.is_alive():
                     proc.kill()
         return [json.loads((pathlib.Path(tmp) / f"rank{r}.json").read_text()) for r in range(n)]
+
+
+# --------------------------------------------------------------------------- dryrun
+# production cells of the H100-cluster dry run: (arch, shape, --mesh)
+DRYRUN_CELLS = (("phi3-mini-3.8b", "train_4k", "both"),
+                ("llama4-scout-17b-a16e", "decode_32k", "single"),
+                ("paper-bayes-fusion", "train_4k", "single"))
+DRYRUN_TIMEOUT = 420          # seconds for each dry-run process
+# fake against real on the card: phi3 at full width cut to 2 layers, at
+# lm_train's batch, one rank with no mesh
+DRYRUN_ARCH, DRYRUN_CUT = "phi3-mini-3.8b", dict(num_layers=2)
+DRYRUN_PEAK_SHARE = 0.10      # the fake peak within this share of max_memory_allocated
+
+
+def _roofline_terms(counts):
+    """(compute, memory) seconds of a count at the data sheet's peaks."""
+    return counts["flops"] / BF16_PEAK_FLOPS, counts["bytes"] / HBM_BYTES_PER_S
+
+
+def _dryrun_on_card(out_path):
+    """The dry run's counts against what runs on the card, in a process of
+    its own: (b) one train step of phi3 at full width cut to 2 layers at
+    lm_train's batch, counted on real CUDA tensors and counted fake (FLOPs
+    and bytes equal, the fake peak within DRYRUN_PEAK_SHARE of
+    ``max_memory_allocated``), a second step timed with CUDA events; (c)
+    whole phi3 at lm_train's batch on one GPU, counted fake: the forward and
+    backward apart from the optimizer, the memory terms beside lm_train's
+    measured times.  Writes its report to ``out_path``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    shape = ShapeConfig("lm_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    cfg = dataclasses.replace(get_config(DRYRUN_ARCH), **DRYRUN_CUT)
+    rep = {"shape": [TRAIN_BATCH, TRAIN_SEQ], "layers": cfg.num_layers}
+    t0 = time.perf_counter()
+    fake = dryrun_mod._measure(cfg, shape, None, DRYRUN_ARCH, device="cuda")
+    rep["fake_s"] = time.perf_counter() - t0
+    params = api.init(cfg, prng.PRNGKey(0), device="cuda")
+    batch = {k: torch.zeros(spec.shape, dtype=spec.dtype, device="cuda")
+             for k, spec in dryrun_mod.input_specs(DRYRUN_ARCH, shape, cfg).items()}
+    args = (params, adamw.init(params), batch)
+    step = dryrun_mod.make_train_fn(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    real = roofline.counts_of(dryrun_mod.count_step(step, args))
+    torch.cuda.synchronize()
+    real_peak = torch.cuda.max_memory_allocated()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    step(*args)
+    end.record()
+    torch.cuda.synchronize()
+    rep.update(fake={k: fake[k] for k in ("flops", "bytes", "peak_bytes", "params_bytes",
+                                          "optimizer_bytes")},
+               real={k: real[k] for k in ("flops", "bytes", "peak_bytes")},
+               base_bytes=base, max_memory_allocated=real_peak,
+               step_ms=start.elapsed_time(end))
+    rep["compute_s"], rep["memory_s"] = _roofline_terms(fake)
+    del params, args, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) whole phi3 at lm_train's batch, one GPU: the forward+backward alone,
+    # then the whole step; the optimizer is the difference
+    whole = get_config(DRYRUN_ARCH)
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        step_w, args_w = dryrun_mod.build_step(whole, shape, None, DRYRUN_ARCH, device="cuda")
+        params_w, _, batch_w = args_w
+
+        def fwd_bwd(p, b):
+            loss, _ = api.loss(p, whole, b)
+            torch.autograd.grad(loss, list(p.parameters()))
+
+        grads = roofline.counts_of(dryrun_mod.count_step(fwd_bwd, (params_w, batch_w)))
+        total = roofline.counts_of(dryrun_mod.count_step(step_w, args_w))
+    rep["whole"] = {"seconds": time.perf_counter() - t0,
+                    "fwd_bwd": {k: grads[k] for k in ("flops", "bytes")},
+                    "optimizer": {k: total[k] - grads[k] for k in ("flops", "bytes")},
+                    "step": {k: total[k] for k in ("flops", "bytes", "peak_bytes")}}
+    for part in ("fwd_bwd", "optimizer", "step"):
+        c = rep["whole"][part]
+        c["compute_ms"], c["memory_ms"] = (t * 1e3 for t in _roofline_terms(c))
+    pathlib.Path(out_path).write_text(json.dumps(rep))
 
 
 class Smoke:
@@ -3025,6 +3128,74 @@ class Smoke:
         self.say(f"multi_device seconds by step {report['seconds_by_step']}; peak GB per rank "
                  f"{report['peak_gb_per_rank']}")
 
+    def dryrun(self):
+        """The H100-cluster dry run (``repro_torch.launch.dryrun``): (a) the
+        production cells of DRYRUN_CELLS, each a ``python -m
+        repro_torch.launch.dryrun`` process on a fake world of 256 or 512
+        ranks, all started together; (b) and (c) in a process of their own
+        (``_dryrun_on_card``).  Each process runs under a timeout."""
+        report = self.report["dryrun"] = {"cells": {}}
+        out = ROOT / "chiprun_out" / "dryrun"
+        out.mkdir(parents=True, exist_ok=True)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        runs = {f"{a}__{s}__{m}": [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+                                    "--shape", s, "--mesh", m, "--out", str(out)]
+                for a, s, m in DRYRUN_CELLS}
+        runs["card"] = [sys.executable, "-c", "import sys, chip_smoke; "
+                        "chip_smoke._dryrun_on_card(sys.argv[1])", str(out / "card.json")]
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+                 for k, cmd in runs.items()}
+        try:
+            logs = {k: p.communicate(timeout=DRYRUN_TIMEOUT)[0] for k, p in procs.items()}
+        finally:
+            for p in procs.values():
+                p.kill()
+        report["seconds"] = time.perf_counter() - t0
+        failed = [k for k, p in procs.items() if p.returncode != 0]
+        for k in failed:
+            print(f"dryrun {k} exited {procs[k].returncode}:\n{logs[k][-3000:]}", flush=True)
+        for arch, shape, mesh in DRYRUN_CELLS:
+            for multi in {"single": [False], "multi": [True], "both": [False, True]}[mesh]:
+                name = dryrun_mod._mesh_name(multi)
+                path = out / f"{arch}__{shape}__{name}.json"
+                cell = json.loads(path.read_text()) if path.exists() else {"ok": False}
+                report["cells"][f"{arch}__{shape}__{name}"] = cell
+                if not cell.get("ok"):
+                    failed.append(f"{arch} {shape} {name}: {cell.get('error', 'no result')}")
+                    continue
+                self.say(f"dryrun {arch} {shape} on {name} ({cell['chips']} GPUs): compute "
+                         f"{cell['compute_s']:.4g} s, memory {cell['memory_s']:.4g} s, collective "
+                         f"{cell['collective_s']:.4g} s (NVLink {cell['collective_by_link']['nvlink']:.4g}"
+                         f" B, IB {cell['collective_by_link']['ib']:.4g} B); {cell['bottleneck']}-bound, "
+                         f"useful {cell['useful_ratio']:.3f}; peak {cell['memory']['peak_gb']:.2f} GB "
+                         f"per GPU; trace {cell['trace_seconds']} s, calibrated {cell['calibrated']}")
+        if failed:
+            raise AssertionError(f"dryrun: failed {failed}")
+        card = report["card"] = json.loads((out / "card.json").read_text())
+        fake, real = card["fake"], card["real"]
+        share = abs(fake["peak_bytes"] - card["max_memory_allocated"]) / card["max_memory_allocated"]
+        card["peak_share"] = share
+        self.say(f"dryrun fake against real, {DRYRUN_ARCH} x{card['layers']} layers at "
+                 f"{card['shape']}: FLOPs {real['flops']:.6g} real, {fake['flops']:.6g} fake; "
+                 f"bytes {real['bytes']:.6g} real, {fake['bytes']:.6g} fake; peak "
+                 f"{fake['peak_bytes'] / 1e9:.3f} GB fake, {card['max_memory_allocated'] / 1e9:.3f}"
+                 f" GB max_memory_allocated ({share:.1%} apart); step {card['step_ms']:.1f} ms "
+                 f"against compute {card['compute_s'] * 1e3:.2f} ms, memory "
+                 f"{card['memory_s'] * 1e3:.2f} ms")
+        w = card["whole"]
+        self.say(f"dryrun whole {DRYRUN_ARCH} at {card['shape']}, one GPU: forward+backward "
+                 f"{w['fwd_bwd']['bytes'] / 1e12:.3f} TB, memory term "
+                 f"{w['fwd_bwd']['memory_ms']:.1f} ms, compute {w['fwd_bwd']['compute_ms']:.1f} ms "
+                 f"(measured 343-427 ms, PERF.md 5); optimizer {w['optimizer']['bytes'] / 1e12:.3f}"
+                 f" TB, memory term {w['optimizer']['memory_ms']:.1f} ms (measured 379-381 ms); "
+                 f"peak {w['step']['peak_bytes'] / 1e9:.2f} GB; {w['seconds']:.1f} s of tracing")
+        if (real["flops"], real["bytes"]) != (fake["flops"], fake["bytes"]):
+            raise AssertionError(f"dryrun: the fake count {fake} differs from the real {real}")
+        if share > DRYRUN_PEAK_SHARE:
+            raise AssertionError(f"dryrun: the fake peak is {share:.1%} from the card's")
+
     def _train_full(self, report):
         args, cfg, data_cfg, train_cfg, opt_cfg = train_launcher.setup(
             ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--global-batch", str(TRAIN_BATCH),
@@ -4050,8 +4221,10 @@ def main() -> int:
     s.phase("device", s.device)
     run("build")
     for name in ("kernels", "main_path", "timing", "binary_timing", "drain_trace", "router",
-                 "paper_layer", "lm_serve", "lm_blocks", "lm_train", "multi_device", "operators"):
+                 "paper_layer", "lm_serve", "lm_blocks", "lm_train", "multi_device"):
         run(name, "build")
+    run("dryrun")
+    run("operators", "build")
     run("operator_timing", "build", "operators")
     run("unfused_kernels", "build")
     run("unfused_path", "build", "unfused_kernels")

@@ -35,14 +35,20 @@ def current_mesh() -> Optional[object]:
 
 @contextlib.contextmanager
 def mesh_context(mesh):
-    """Make ``mesh`` the ambient mesh inside the ``with`` block."""
-    from torch.distributed.tensor.experimental import implicit_replication
+    """Make ``mesh`` the ambient mesh inside the ``with`` block, with
+    DTensor's implicit replication on (a thread's own setting, restored on
+    exit: ``implicit_replication()`` would turn it off inside an enclosing
+    block)."""
+    from torch.distributed.tensor import DTensor
 
+    dispatcher = DTensor._op_dispatcher
     token = _MESH.set(mesh)
+    before = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
     try:
-        with implicit_replication():
-            yield mesh
+        yield mesh
     finally:
+        dispatcher._allow_implicit_replication = before
         _MESH.reset(token)
 
 
@@ -129,3 +135,81 @@ def constrain(x, *spec):
         return x
     place = _sharding.placements(_resolve_spec(tuple(x.shape), spec, mesh), mesh)
     return x if tuple(x.placements) == place else x.redistribute(mesh, place)
+
+
+def embed(table, tokens):
+    """``table[tokens]``, an embedding lookup, under the ambient mesh.
+
+    A DTensor table is gathered whole and each rank looks up its own tokens'
+    rows on local tensors; the rows come back placed as the tokens are.  Its
+    gradient is each rank's partial sum over its tokens, summed over the mesh
+    dims the tokens are split on (the others hold the same tokens) and
+    scattered back to the table's placement.  DTensor's own rules for the
+    lookup fail on this layout: torch 2.11's for ``index_put`` (the lookup's
+    backward) and for tokens split over two mesh dims, 2.13's for the
+    partial rows of a vocabulary-sharded ``F.embedding``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    split = tokens.placements if isinstance(tokens, DTensor) else ()
+    grads = [Partial() if p.is_shard() else Replicate() for p in split] \
+        or [Replicate()] * table.device_mesh.ndim
+    whole = table.full_tensor(grad_placements=grads)
+    (local,), placed = local_blocks(tokens)
+    return placed(whole[local])
+
+
+def local_blocks(*tensors):
+    """``(blocks, wrap)``: each DTensor's block on this rank (all placed
+    alike) and ``wrap``, which makes a result of the blocks' layout a DTensor
+    placed as the first was; plain tensors and ``wrap`` the identity when no
+    DTensor is given.  For code that runs per rank on its own rows."""
+    from torch.distributed.tensor import DTensor
+
+    first = tensors[0]
+    if not isinstance(first, DTensor):
+        return tensors, lambda out: out
+    if any(tuple(t.placements) != tuple(first.placements) for t in tensors):
+        raise ValueError("local_blocks: the tensors are placed differently")
+    mesh, place = first.device_mesh, first.placements
+    return tuple(t.to_local() for t in tensors), \
+        (lambda out: DTensor.from_local(out, mesh, place, run_check=False))
+
+
+def whole(t):
+    """A DTensor's global value as a plain tensor on every rank (``None`` and
+    plain tensors as they are)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def pin(x):
+    """``x`` as it is, through a node whose backward brings the gradient to
+    ``x``'s own layout (a DTensor's ``redistribute`` to its placements).  An
+    attention output flattened from its heads takes its gradient from the
+    out-projection sharded over the features; unflattened back into heads
+    whose count the shards do not divide, DTensor refuses it."""
+    from torch.distributed.tensor import DTensor
+
+    return x.redistribute(x.device_mesh, x.placements) if isinstance(x, DTensor) else x
+
+
+def recomputed(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (recomputed in the
+    backward), the recomputation under the ambient mesh: a CUDA backward runs
+    on autograd's device thread, which takes the caller's thread-local state
+    (grad mode, dispatch modes, DTensor's implicit replication) but not its
+    context variables, so the mesh would be unset there and every
+    ``constrain`` skipped."""
+    from torch.utils import checkpoint
+
+    mesh = current_mesh()
+
+    def body(*a):
+        again = mesh is not None and current_mesh() is None
+        with mesh_context(mesh) if again else contextlib.nullcontext():
+            return fn(*a)
+
+    return checkpoint.checkpoint(body, *args, use_reentrant=False)

@@ -1,1 +1,3 @@
-"""Command-line launchers of the port: LM serving (``serve``) and training (``train``)."""
+"""Command-line launchers of the port: LM serving (``serve``), training
+(``train``) and the H100-cluster dry run (``dryrun``, with ``mesh`` and
+``roofline``)."""

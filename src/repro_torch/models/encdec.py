@@ -17,7 +17,6 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
-from torch.utils import checkpoint
 
 from repro_torch.core import prng
 from repro_torch.distributed import context as dctx
@@ -77,8 +76,7 @@ def init_params(cfg, key, *, device="cuda") -> Model:
 def _layers(body, x, blocks):
     """The reference's ``_maybe_scan`` over ``jax.checkpoint(block)``."""
     for bp in blocks:
-        x = checkpoint.checkpoint(body, x, bp, use_reentrant=False) \
-            if torch.is_grad_enabled() else body(x, bp)
+        x = dctx.recomputed(body, x, bp) if torch.is_grad_enabled() else body(x, bp)
     return x
 
 
@@ -88,43 +86,58 @@ def encode(params: Params, cfg, frames: torch.Tensor) -> torch.Tensor:
     positions = torch.arange(frames.shape[1], device=frames.device)
 
     def block(x, bp):
-        h = layers.apply_norm(bp["norm1"], x, cfg.norm)
+        h = _gathered(layers.apply_norm(bp["norm1"], x, cfg.norm), cfg)
         # float32 weights (a model after a microbatched step) take the bf16
         # frames' first norm up to float32, as the reference's matmul does
         h = h.to(torch.promote_types(h.dtype, bp["attn"]["wq"].dtype))
         mix, _ = layers.gqa_apply(bp["attn"], h, cfg, kind="full_bidir", positions=positions,
                                   rope=True)
-        x = x + mix
-        h2 = layers.apply_norm(bp["norm2"], x, cfg.norm)
-        x = x + layers.apply_mlp(bp["mlp"], h2, cfg.mlp)
+        x = x + _scattered(mix, cfg)
+        h2 = _gathered(layers.apply_norm(bp["norm2"], x, cfg.norm), cfg)
+        x = x + _scattered(layers.apply_mlp(bp["mlp"], h2, cfg.mlp), cfg)
         return dctx.constrain(x, "batch", "model", None) if cfg.seq_shard else x
 
     x = _layers(block, frames, params["enc_blocks"])
-    return layers.apply_norm(params["enc_norm"], x, cfg.norm)
+    return _gathered(layers.apply_norm(params["enc_norm"], x, cfg.norm), cfg)
+
+
+def _gathered(h, cfg):
+    """``h`` with its sequence gathered under a mesh where the residual stream
+    is sequence-sharded (``transformer.block_apply``'s constraint before a
+    projection: DTensor cannot flatten a sharded sequence into the rows of a
+    matmul on torch 2.11)."""
+    return dctx.constrain(h, "batch", None, None) if cfg.seq_shard and h.shape[1] > 1 else h
+
+
+def _scattered(t, cfg):
+    """A block's branch output split over the sequence as the residual stream
+    is (``transformer.block_apply``'s): the gradient then reaches the
+    branch's last matmul with its sequence whole."""
+    return dctx.constrain(t, "batch", "model", None) if cfg.seq_shard and t.shape[1] > 1 else t
 
 
 def _dec_block(bp, x, enc_out, cfg, positions, self_cache=None, cross_cache=None,
                cache_pos=None):
-    h = layers.apply_norm(bp["norm1"], x, cfg.norm)
+    h = _gathered(layers.apply_norm(bp["norm1"], x, cfg.norm), cfg)
     mix, new_self = layers.gqa_apply(bp["self_attn"], h, cfg, kind="causal", positions=positions,
                                      cache=self_cache, cache_pos=cache_pos)
-    x = x + mix
-    hx = layers.apply_norm(bp["norm_x"], x, cfg.norm)
+    x = x + _scattered(mix, cfg)
+    hx = _gathered(layers.apply_norm(bp["norm_x"], x, cfg.norm), cfg)
     cross, new_cross = layers.cross_attention_apply(bp["cross_attn"], hx, enc_out, cfg,
                                                     cache=cross_cache)
-    x = x + cross
-    h2 = layers.apply_norm(bp["norm2"], x, cfg.norm)
-    return x + layers.apply_mlp(bp["mlp"], h2, cfg.mlp), new_self, new_cross
+    x = x + _scattered(cross, cfg)
+    h2 = _gathered(layers.apply_norm(bp["norm2"], x, cfg.norm), cfg)
+    return x + _scattered(layers.apply_mlp(bp["mlp"], h2, cfg.mlp), cfg), new_self, new_cross
 
 
 def _logits(params, cfg, x):
-    return layers.apply_norm(params["final_norm"], x, cfg.norm) @ params["unembed"]
+    return _gathered(layers.apply_norm(params["final_norm"], x, cfg.norm), cfg) @ params["unembed"]
 
 
 def forward(params: Params, cfg, frames: torch.Tensor, tokens: torch.Tensor):
     """Teacher-forced enc-dec forward -> (logits (B, S_dec, vocab_padded), aux)."""
     enc_out = encode(params, cfg, frames)
-    x = params["embed"][tokens]
+    x = dctx.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
 
     def block(x, bp):
@@ -146,7 +159,7 @@ def prefill(params: Params, cfg, frames: torch.Tensor, tokens: torch.Tensor, t_c
     cross k/v; returns (last-token logits, state)."""
     enc_out = encode(params, cfg, frames)
     b, s = tokens.shape
-    x = params["embed"][tokens]
+    x = dctx.embed(params["embed"], tokens)
     positions = torch.arange(s, device=x.device)
     hd = cfg.resolved_head_dim
     state = {"self": [], "cross": []}
@@ -162,7 +175,7 @@ def prefill(params: Params, cfg, frames: torch.Tensor, tokens: torch.Tensor, t_c
 
 def decode_step(params: Params, cfg, token: torch.Tensor, state, pos):
     """One decoder step against the self caches and the fixed cross k/v."""
-    x = params["embed"][token][:, None, :]
+    x = dctx.embed(params["embed"], token)[:, None, :]
     positions = torch.full((1,), int(pos), dtype=torch.int32, device=x.device)
     new_self = []
     for bp, self_c, cross_kv in zip(params["dec_blocks"], state["self"], state["cross"]):

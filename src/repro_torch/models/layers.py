@@ -191,10 +191,14 @@ def multihead_attention(
     NaN), and the weights cast to ``v``'s dtype before the value product.
     Queries go in blocks of ``q_chunk`` (the reference maps over them).
     """
-    # under a mesh: DTensor has no rule for the score einsum with the batch
-    # and the heads both sharded (it flattens them), so the heads are
-    # replicated here and the batch stays sharded
+    # under a mesh the heads are replicated and the batch stays sharded, and
+    # each rank attends its own rows on local tensors: DTensor's rules for
+    # the score einsum's flatten of a sharded batch (with sharded heads, in
+    # the backward) differ between torch versions and refuse it in some
     q, k, v = (dctx.constrain(t, "batch", None, None, None) for t in (q, k, v))
+    (q, k, v), placed = dctx.local_blocks(q, k, v)
+    q_positions, k_positions, k_valid = (dctx.whole(t) for t in (q_positions, k_positions,
+                                                                 k_valid))
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     group = h // kvh
@@ -228,7 +232,7 @@ def multihead_attention(
     else:
         out = torch.cat([attend(q[:, i:i + q_chunk], q_positions[i:i + q_chunk])
                          for i in range(0, s, q_chunk)], dim=1)
-    return out.reshape(b, s, h, vd)
+    return placed(out.reshape(b, s, h, vd))
 
 
 def cache_len_for_kind(kind: str, seq_len: int, window: int, chunk: int) -> int:
@@ -285,6 +289,10 @@ def gqa_apply(
     v = x @ params["wv"]
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    # under a mesh the projections' features are gathered before the split
+    # into heads (the attention replicates the heads anyway): DTensor cannot
+    # split a dim sharded over more shards than it has heads, or unevenly
+    q, k, v = (dctx.constrain(t, "batch", None, None) for t in (q, k, v))
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, kvh, hd)
     v = v.reshape(b, s, kvh, hd)
@@ -328,7 +336,7 @@ def gqa_apply(
                 }
         else:
             new_cache = None
-    out = out.reshape(b, s, h * hd) @ params["wo"]
+    out = dctx.pin(out.reshape(b, s, h * hd)) @ params["wo"]
     return out, new_cache
 
 
@@ -354,5 +362,5 @@ def cross_attention_apply(params, x, enc_out, cfg, *, cache=None):
         k_positions=torch.arange(t, device=x.device),
         q_chunk=cfg.q_chunk,
     )
-    out = out.reshape(b, s, h * hd) @ params["wo"]
+    out = dctx.pin(out.reshape(b, s, h * hd)) @ params["wo"]
     return out, {"k": k, "v": v}

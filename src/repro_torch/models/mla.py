@@ -18,6 +18,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core import prng
+from repro_torch.distributed import context as dctx
 from repro_torch.models import layers
 
 
@@ -94,7 +95,7 @@ def mla_apply(
             w = torch.softmax(scores, dim=-1)
             ctx_lat = torch.einsum("bhst,btr->bshr", w, clat_f)
             ctx = torch.einsum("bshr,rhv->bshv", ctx_lat, w_v.float())
-            out = ctx.reshape(b, 1, h * cfg.v_head_dim).to(x.dtype) @ params["wo"]
+            out = dctx.pin(ctx.reshape(b, 1, h * cfg.v_head_dim).to(x.dtype)) @ params["wo"]
             return out, new_cache
         k_nope_full, v_full = _expand_kv(params, clat, cfg)
         k_rope_full = ckr
@@ -114,7 +115,7 @@ def mla_apply(
         q_positions=positions, k_positions=k_positions, k_valid=k_valid,
         q_chunk=cfg.q_chunk,
     )
-    out = out.reshape(b, s, h * cfg.v_head_dim) @ params["wo"]
+    out = dctx.pin(out.reshape(b, s, h * cfg.v_head_dim)) @ params["wo"]
     return out, new_cache
 
 

@@ -131,7 +131,8 @@ def _moe_ep(params, x, cfg, mesh):
     layer runs on plain tensors.  Its output is summed over ``model``, its
     aux averaged over ``model`` (a batch shard's aux, as in the reference,
     whose ``P()`` out spec keeps each shard's own).  The output is a DTensor
-    sharded over the batch axes if ``x`` was one, else the global tensor.
+    sharded over the batch axes if ``x`` was one (and aux a replicated
+    DTensor), else the global tensor (and aux a plain one).
     """
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
@@ -164,8 +165,10 @@ def _moe_ep(params, x, cfg, mesh):
                                   for a, p in zip(names, part)])
     aux = DTensor.from_local(aux, mesh, [Partial("avg") if a == "model" else Replicate()
                                          for a in names], run_check=False)
-    aux = aux.redistribute(mesh, repl).to_local()
-    return (out if isinstance(x, DTensor) else out.full_tensor()), aux
+    aux = aux.redistribute(mesh, repl)
+    if isinstance(x, DTensor):      # the loss adds aux to DTensors: its gradient is one
+        return out, aux
+    return out.full_tensor(), aux.to_local()
 
 
 def _combine(gathered: torch.Tensor, order: torch.Tensor, t: int, k: int) -> torch.Tensor:

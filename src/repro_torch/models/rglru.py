@@ -60,8 +60,8 @@ def _conv1d(x: torch.Tensor, kernel: torch.Tensor, state: torch.Tensor | None):
     The taps are summed by Python's ``sum`` from 0, in the reference's order,
     each add rounded to ``x``'s dtype."""
     cw = kernel.shape[0]
-    if state is None:
-        xp = torch.nn.functional.pad(x, (0, 0, cw - 1, 0))
+    if state is None:       # zeros ahead of the sequence (as a cat: DTensor's pad fails on torch 2.11)
+        xp = torch.cat([torch.zeros_like(x[:, :1]).expand(-1, cw - 1, -1), x], dim=1)
     else:
         xp = torch.cat([state.to(x.dtype), x], dim=1)
     s = x.shape[1]

@@ -31,7 +31,6 @@ from typing import Any, Dict, Tuple
 
 import torch
 from torch import nn
-from torch.utils import checkpoint
 
 from repro_torch.core import prng
 from repro_torch.distributed import context as dctx
@@ -242,7 +241,7 @@ def init_params(cfg, key, *, device="cuda") -> Model:
 
 
 def _embed(params, tokens, extra_embeds):
-    x = params["embed"][tokens]
+    x = dctx.embed(params["embed"], tokens)
     if extra_embeds is not None:
         # multimodal stub frontend: precomputed patch/frame embeddings prepended
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
@@ -280,7 +279,7 @@ def forward(
 
     for r in range(reps):
         if torch.is_grad_enabled():
-            x, aux = checkpoint.checkpoint(superblock, x, r, use_reentrant=False)
+            x, aux = dctx.recomputed(superblock, x, r)
         else:
             x, aux = superblock(x, r)
         aux_total = aux_total + aux
@@ -302,7 +301,7 @@ def _nll(logits, labels):
 def mtp_hidden(params: Params, cfg, h: torch.Tensor, next_tokens: torch.Tensor) -> torch.Tensor:
     """The MTP head's normed hidden state: ``[h_t ; emb(t+1)]`` projected, one
     block of ``cfg.pattern[0]``, the head's norm.  Position t predicts t+2."""
-    emb_next = params["embed"][next_tokens]
+    emb_next = dctx.embed(params["embed"], next_tokens)
     h2 = torch.cat([h, emb_next], dim=-1) @ params["mtp"]["proj"]
     h2, _, _ = block_apply(params["mtp"]["block"], h2, cfg, cfg.pattern[0],
                            positions=torch.arange(h2.shape[1], device=h2.device))
@@ -382,7 +381,7 @@ def prefill(params: Params, cfg, tokens: torch.Tensor, t_cache: int,
 
 def decode_step(params: Params, cfg, token: torch.Tensor, state, pos):
     """One decode step: token (B,) at absolute position ``pos`` (scalar)."""
-    x = params["embed"][token][:, None, :]
+    x = dctx.embed(params["embed"], token)[:, None, :]
     positions = torch.full((1,), int(pos), dtype=torch.int32, device=x.device)
     x, state = _run_stack(params, cfg, x, positions, state, int(pos))
     h = layers.apply_norm(params["final_norm"], x, cfg.norm)

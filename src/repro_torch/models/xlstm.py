@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import prng
+from repro_torch.distributed import context as dctx
 from repro_torch.models import layers
 from repro_torch.models.rglru import softplus
 
@@ -139,9 +140,10 @@ def mlstm_apply(params, x: torch.Tensor, cfg, state: dict | None = None) -> Tupl
     dh = di // nh
     up = x @ params["w_up"]
     gate = F.silu(x @ params["w_gate"])
-    q = (up @ params["wq"]).reshape(b, s, nh, dh)
-    k = (up @ params["wk"]).reshape(b, s, nh, dh)
-    v = (up @ params["wv"]).reshape(b, s, nh, dh)
+    # under a mesh the features are gathered before the split into heads
+    # (as in layers.gqa_apply), and the heads before they are merged
+    q, k, v = (dctx.constrain(up @ params[w], "batch", None, None).reshape(b, s, nh, dh)
+               for w in ("wq", "wk", "wv"))
     log_i = log_sigmoid(up.float() @ params["w_i"])
     log_f = log_sigmoid(up.float() @ params["w_f"])
 
@@ -162,13 +164,13 @@ def mlstm_apply(params, x: torch.Tensor, cfg, state: dict | None = None) -> Tupl
         num = torch.einsum("bhk,bhkv->bhv", qs.float() * scale, C)
         den = torch.einsum("bhk,bhk->bh", qs.float() * scale, n).abs()
         h = num / torch.maximum(den, torch.exp(-m_new))[..., None]
-        ht = h.reshape(b, 1, di)
+        ht = dctx.constrain(h, "batch", None, None).reshape(b, 1, di)
         new_state = {"C": C, "n": n, "m": m_new}
     else:
         if state is None:
             state = mlstm_init_state(b, cfg, device=x.device)
         h, new_state = _mlstm_chunked(q, k, v, log_i, log_f, state, chunk=cfg.mlstm_chunk)
-        ht = h.reshape(b, s, di)
+        ht = dctx.constrain(h, "batch", None, None, None).reshape(b, s, di)
     out = (ht.to(x.dtype) * gate) @ params["w_down"]
     return out, new_state
 

@@ -83,12 +83,13 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def init(params) -> OptState:
     """Zero moments and a float32 master copy of ``params`` (a model or a
-    dict of tensors), on the params' device."""
+    dict of tensors), on the params' device; a DTensor's state is placed as
+    the DTensor is."""
     named = _named(params)
     dev = next(iter(named.values())).device
     master = {k: p.detach().to(torch.float32, copy=True) for k, p in named.items()}
-    m = {k: torch.zeros(p.shape, dtype=torch.float32, device=dev) for k, p in named.items()}
-    v = {k: torch.zeros(p.shape, dtype=torch.float32, device=dev) for k, p in named.items()}
+    m = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in named.items()}
+    v = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in named.items()}
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev), master=master, m=m, v=v)
 
 
@@ -100,15 +101,45 @@ def _slices(*tensors):
         yield [f[a:a + _CHUNK] for f in flat]
 
 
+def _local(t) -> torch.Tensor:
+    """The values this rank updates: a DTensor's own shard (its storage), a
+    plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _reduction(t):
+    """``None`` for a plain tensor; for a DTensor its mesh and the placements
+    that sum its shards' partial sums over the mesh dims it is sharded on."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not isinstance(t, DTensor):
+        return None
+    return t.device_mesh, tuple(Partial() if p.is_shard() else Replicate()
+                                for p in t.placements)
+
+
 @torch.no_grad()
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf (float32): each leaf's squares
-    in float32, summed in float64, the root in float64 rounded once."""
+    in float32, summed in float64, the root in float64 rounded once.  A
+    DTensor leaf adds its shard's squares; one all-reduce per placement sums
+    those over the ranks that hold the other shards."""
+    from torch.distributed.tensor import DTensor
+
     leaves = list(_named(tree).values())
-    total = torch.zeros((), dtype=torch.float64, device=leaves[0].device)
+    sums = {}
     for x in leaves:
-        for (c,) in _slices(x.detach().contiguous()):
-            total += torch.sum(torch.square(c.to(torch.float32)), dtype=torch.float64)
+        key = _reduction(x)
+        if key not in sums:
+            sums[key] = torch.zeros((), dtype=torch.float64, device=_local(x).device)
+        for (c,) in _slices(_local(x.detach()).contiguous()):
+            sums[key] += torch.sum(torch.square(c.to(torch.float32)), dtype=torch.float64)
+    total = sums.pop(None, None)
+    for (mesh, place), s in sums.items():
+        s = DTensor.from_local(s, mesh, place, run_check=False).full_tensor()
+        total = s if total is None else total + s
     return torch.sqrt(total).to(torch.float32)
 
 
@@ -122,7 +153,16 @@ def apply(grads, opt_state: OptState, cfg: AdamWConfig):
     buffer receives its new param, ``master`` rounded to the gradient's dtype
     (bf16 gradients give bf16 params, the float32 gradients of a
     microbatched step float32 params).  ``new_params`` is that dict.
+
+    DTensor gradients (a model placed on a mesh) are first placed as their
+    state is (a partial sum is reduced, scattered where the state is
+    sharded); then each rank updates its own shards, and ``new_params``
+    holds those placed gradients.
     """
+    from torch.distributed.tensor import DTensor
+
+    grads = {n: g.redistribute(g.device_mesh, opt_state.master[n].placements)
+             if isinstance(g, DTensor) else g for n, g in grads.items()}
     dev = opt_state.step.device
     step = opt_state.step + 1
     gnorm = global_norm(grads)
@@ -136,9 +176,10 @@ def apply(grads, opt_state: OptState, cfg: AdamWConfig):
     bc2 = one - torch.pow(b2, step.to(torch.float32))
     eps, wd = _f32(cfg.eps, dev), _f32(cfg.weight_decay, dev)
     for name, g in grads.items():
+        g = _local(g)
         if not g.is_contiguous():
             raise ValueError(f"gradient {name} is not contiguous")
-        master, m, v = opt_state.master[name], opt_state.m[name], opt_state.v[name]
+        master, m, v = (_local(s[name]) for s in (opt_state.master, opt_state.m, opt_state.v))
         for gc, pc, mc, vc in _slices(g, master, m, v):
             g32 = gc.to(torch.float32)
             mc.mul_(b1).add_((c1 * g32) * scale)

@@ -57,8 +57,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, microbatches: int = 1):
         named = dict(params.named_parameters())
         if microbatches > 1:
             dev = next(iter(named.values())).device
-            gsum = {n: torch.zeros(p.shape, dtype=torch.float32, device=dev)
-                    for n, p in named.items()}
+            gsum = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in named.items()}
             lsum = torch.zeros((), dtype=torch.float32, device=dev)
             for i in range(microbatches):
                 mb = {k: x.reshape((microbatches, x.shape[0] // microbatches) + x.shape[1:])[i]

@@ -177,3 +177,28 @@ def test_compressed_mean_bit_for_bit(ranks, ref):
 def test_constrain_fallbacks(ranks, tag, want):
     for got in ranks:
         assert got[f"c.{tag}"].tolist() == want
+
+
+def test_sharded_gradients_equal_the_unsharded_ones(ranks):
+    # float32 weights, the shards' partial sums added in another order than
+    # the plain backward's: each leaf within 1e-4 of its largest value
+    # (the bound the float32 gradients keep against the reference, ROADMAP)
+    for r in ranks:
+        loss_plain, loss_sharded = r["step.loss"]
+        assert abs(loss_sharded - loss_plain) <= 1e-5 * abs(loss_plain)
+        assert float(r["step.grad_err"]) <= 1e-4
+
+
+def test_adamw_on_each_ranks_shards_equals_the_plain_update(ranks):
+    for r in ranks:
+        assert r["adamw.equal"].tolist() == [True, True, True, True]
+        plain, sharded = r["adamw.gnorm"]
+        assert abs(sharded - plain) <= 1e-6 * plain
+        # each rank updated its shards in place: the new params keep the placements
+        assert len(r["adamw.placements"]) > 1
+
+
+def test_backward_on_another_thread_equals_the_callers(ranks):
+    # a recomputed block re-enters the mesh, and implicit replication is on
+    # for the thread that runs the backward
+    assert all(bool(r["step.thread_equal"]) for r in ranks)

@@ -170,8 +170,10 @@ def models(rank, n, moe_x, lm_tokens, grad, **flat):
     """On a (2, 2) ("data", "model") world: the MoE layer local and expert
     parallel; the smoke qwen2's loss unsharded and with params placed by
     ``param_shardings`` under the mesh (recording each ``constrain`` call);
-    ``compressed_mean`` over ``data`` of this rank's gradient shard; and
-    ``constrain``'s fallbacks."""
+    ``compressed_mean`` over ``data`` of this rank's gradient shard;
+    ``constrain``'s fallbacks; and the smoke qwen2's gradients (float32
+    weights) sharded and unsharded, then ``adamw.apply`` on DTensors and on
+    plain tensors fed the same gradients."""
     import dataclasses
 
     from torch.distributed.tensor import DTensor, Replicate
@@ -266,6 +268,70 @@ def models(rank, n, moe_x, lm_tokens, grad, **flat):
             assert torch.equal(z.full_tensor(), y), tag
         assert dctx.constrain(y, "batch", None, "model") is y        # a plain tensor
     assert dctx.constrain(yd, "batch", None, "model") is yd          # no mesh
+
+    # --- a sharded train step: the gradients, then AdamW on each rank's shards
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2-72b"), d_model=64, num_heads=4,
+                              num_kv_heads=4)
+    tokens = torch.from_numpy(lm_tokens)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+
+    def float32(model):
+        # float32 weights: the shards' partial sums in bf16 would part the two
+        # backwards by bf16 roundings, not by a fault
+        for mod in model.modules():
+            for name, w in list(mod.named_parameters(recurse=False)):
+                mod.register_parameter(name, torch.nn.Parameter(w.detach().float()))
+        return model
+
+    plain = float32(api.init(cfg, prng.PRNGKey(0), device="cpu"))
+    placed = sharding.distribute_params(float32(api.init(cfg, prng.PRNGKey(0), device="cpu")),
+                                        mesh)
+    bs = {k: sharding.shard(v, mesh, sharding.batch_sharding(mesh)) for k, v in batch.items()}
+    loss_p, grads_p = loop._grads(plain, cfg, batch)
+    with dctx.mesh_context(mesh):
+        loss_s, grads_s = loop._grads(placed, cfg, bs)
+        loss_t = api.loss(placed, cfg, bs)[0]
+    # the backward on a thread of its own, as a CUDA backward runs on
+    # autograd's device thread: the caller's thread-local state (implicit
+    # replication on) but not its context variables (no ambient mesh)
+    import threading
+
+    named = dict(placed.named_parameters())
+    box = {}
+
+    def backward():
+        DTensor._op_dispatcher._allow_implicit_replication = True
+        box["g"] = torch.autograd.grad(loss_t, list(named.values()))
+
+    worker = threading.Thread(target=backward)
+    worker.start()
+    worker.join(GROUP_TIMEOUT)
+    out["step.thread_equal"] = np.array(all(
+        torch.equal(g.full_tensor(), grads_s[k].full_tensor())
+        for k, g in zip(named, box["g"])))
+    out["step.loss"] = np.array([_np(loss_p), _np(loss_s)])
+    out["step.grad_err"] = np.array(max(
+        float((grads_s[k].full_tensor() - g).abs().max() / g.abs().max())
+        for k, g in grads_p.items() if g.abs().max() > 0))
+    # the same gradients (scaled under the clip) through both updates
+    place = sharding.param_shardings(placed, mesh)
+    small = {k: g * 1e-3 for k, g in grads_p.items()}
+    cfg_o = adamw.AdamWConfig(lr=1e-2, warmup_steps=1)
+    new_p, opt_p, m_p = adamw.apply({k: g.clone() for k, g in small.items()},
+                                    adamw.init(plain), cfg_o)
+    with dctx.mesh_context(mesh):
+        new_s, opt_s, m_s = adamw.apply(
+            {k: sharding.shard(g.clone(), mesh, place[k]) for k, g in small.items()},
+            adamw.init(placed), cfg_o)
+    out["adamw.gnorm"] = np.array([_np(m_p["grad_norm"]), _np(m_s["grad_norm"])])
+    out["adamw.placements"] = np.array(sorted({str(tuple(new_s[k].placements)) for k in new_s}))
+    out["adamw.equal"] = np.array([
+        all(torch.equal(a[k], b[k].full_tensor()) for k in a)
+        for a, b in ((new_p, new_s), (opt_p.master, opt_s.master), (opt_p.m, opt_s.m),
+                     (opt_p.v, opt_s.v))])
     return out
 
 
