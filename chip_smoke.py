@@ -182,11 +182,16 @@ Phases (any failure makes the script exit non-zero without the result line):
 14. dryrun -- the H100-cluster dry run (``repro_torch.launch.dryrun``), its
               processes under a timeout: (a) phi3-mini-3.8b x ``train_4k`` on
               both production meshes (``h100x32x8``, ``h100x2x16x8``),
-              llama4-scout x ``decode_32k`` and ``paper-bayes-fusion`` x
+              llama4-scout x ``decode_32k``, deepseek-v3 x ``prefill_32k``,
+              xlstm-350m x ``train_4k`` and ``paper-bayes-fusion`` x
               ``train_4k``, each ``python -m repro_torch.launch.dryrun`` on a
-              fake world of 256 or 512 ranks under ``FakeTensorMode``: the
+              fake world of 256 ranks under ``FakeTensorMode`` (xlstm's,
+              5-10 minutes on one CPU core, started with the script): the
               three roofline terms, the bottleneck, peak GB per GPU and trace
-              seconds, any ``ok: false`` failing the phase; (b) one rank, no
+              seconds, any ``ok: false`` failing the phase, and phi3's
+              ``train_4k`` on ``h100x32x8`` failing it above 80 GB per GPU;
+              the trace seconds of one sLSTM layer at ``train_4k``'s per-GPU
+              batch, 1024 steps (``SLSTM_TRACE``); (b) one rank, no
               mesh: a phi3 train step at full width cut to 2 layers at
               lm_train's batch (8 x 128) counted on real CUDA tensors and
               counted fake -- FLOPs and bytes equal, the fake peak within 10 %
@@ -1932,12 +1937,55 @@ def _md_world(n, backend_name, steps):
 # production cells of the H100-cluster dry run: (arch, shape, --mesh)
 DRYRUN_CELLS = (("phi3-mini-3.8b", "train_4k", "both"),
                 ("llama4-scout-17b-a16e", "decode_32k", "single"),
+                ("deepseek-v3-671b", "prefill_32k", "single"),
+                ("xlstm-350m", "train_4k", "single"),
                 ("paper-bayes-fusion", "train_4k", "single"))
 DRYRUN_TIMEOUT = 420          # seconds for each dry-run process
+# archs whose cells trace for minutes on one CPU core (xlstm's sLSTM: some 15
+# fake ops per token, each traced forward, recomputed and backward): started
+# when the script starts, while the GPU phases run, under a timeout of their own
+DRYRUN_EARLY, DRYRUN_EARLY_TIMEOUT = {"xlstm-350m"}, 900
+DRYRUN_FIT_GB = 80            # phi3 train_4k on h100x32x8 must fit an H100's HBM
+SLSTM_TRACE_SEQ = 1024        # a quarter of train_4k's sequence
+# One sLSTM layer of xlstm-350m at full width (the model cut to that one
+# block), a train step traced on rank 0 of the h100x32x8 fake world at
+# train_4k's batch (8 rows per GPU), at each sequence length given; prints
+# {seq: seconds}.  Run as ``python -c`` with a tree's own ``src`` first on
+# the path, so the same measurement reads another checkout's code.
+SLSTM_TRACE = """
+import dataclasses, json, sys, time
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
+
+cfg = dataclasses.replace(get_config("xlstm-350m"), pattern=("slstm",), num_layers=1)
+out = {}
+with dryrun.fake_world(256):
+    mesh = make_production_mesh(device="cuda")
+    for seq in map(int, sys.argv[1:]):
+        t0 = time.perf_counter()
+        dryrun._measure(cfg, ShapeConfig("slstm", seq, 256, "train"), mesh, "xlstm-350m")
+        out[seq] = time.perf_counter() - t0
+print(json.dumps(out))
+"""
+
+
+def slstm_trace_cmd(tree, seqs):
+    """The command that runs SLSTM_TRACE on the checkout ``tree``."""
+    return [sys.executable, "-c", f"import sys; sys.path.insert(0, {str(pathlib.Path(tree) / 'src')!r})"
+            + SLSTM_TRACE, *map(str, seqs)]
 # fake against real on the card: phi3 at full width cut to 2 layers, at
 # lm_train's batch, one rank with no mesh
 DRYRUN_ARCH, DRYRUN_CUT = "phi3-mini-3.8b", dict(num_layers=2)
 DRYRUN_PEAK_SHARE = 0.10      # the fake peak within this share of max_memory_allocated
+
+
+def _dryrun_cells(out):
+    """The CLI command of each DRYRUN_CELLS entry, by ``arch__shape__mesh``."""
+    return {f"{a}__{s}__{m}": [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+                               "--shape", s, "--mesh", m, "--out", str(out)]
+            for a, s, m in DRYRUN_CELLS}
 
 
 def _roofline_terms(counts):
@@ -2016,6 +2064,27 @@ class Smoke:
         self.failures = []
         self.report = {"phases": {}}
         self.card = ""
+        self.early = {}          # name -> (process, log path, deadline) of the early dry-run cells
+
+    def start_dryrun_early(self):
+        """Start the dry-run cells of DRYRUN_EARLY, each a CLI process that
+        writes its log to a file; ``dryrun`` reads them."""
+        out = ROOT / "chiprun_out" / "dryrun"
+        out.mkdir(parents=True, exist_ok=True)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        for name, cmd in _dryrun_cells(out).items():
+            if name.split("__")[0] in DRYRUN_EARLY:
+                log = out / f"{name}.log"
+                with open(log, "w") as f:
+                    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f,
+                                            stderr=subprocess.STDOUT, text=True)
+                self.early[name] = (proc, log, time.monotonic() + DRYRUN_EARLY_TIMEOUT)
+
+    def stop(self):
+        """Stop every process the run started and left running."""
+        for proc, _, _ in self.early.values():
+            proc.kill()
+            proc.wait()
 
     def phase(self, name, fn):
         t0 = time.perf_counter()
@@ -3131,27 +3200,32 @@ class Smoke:
     def dryrun(self):
         """The H100-cluster dry run (``repro_torch.launch.dryrun``): (a) the
         production cells of DRYRUN_CELLS, each a ``python -m
-        repro_torch.launch.dryrun`` process on a fake world of 256 or 512
-        ranks, all started together; (b) and (c) in a process of their own
-        (``_dryrun_on_card``).  Each process runs under a timeout."""
+        repro_torch.launch.dryrun`` process on a fake world of 256 ranks,
+        all started together (those of DRYRUN_EARLY when the script
+        started); one sLSTM layer's trace (SLSTM_TRACE); (b) and (c) in a
+        process of their own (``_dryrun_on_card``).  Each process runs
+        under a timeout."""
         report = self.report["dryrun"] = {"cells": {}}
         out = ROOT / "chiprun_out" / "dryrun"
         out.mkdir(parents=True, exist_ok=True)
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-        runs = {f"{a}__{s}__{m}": [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
-                                    "--shape", s, "--mesh", m, "--out", str(out)]
-                for a, s, m in DRYRUN_CELLS}
+        runs = {k: cmd for k, cmd in _dryrun_cells(out).items() if k not in self.early}
         runs["card"] = [sys.executable, "-c", "import sys, chip_smoke; "
                         "chip_smoke._dryrun_on_card(sys.argv[1])", str(out / "card.json")]
+        runs["slstm"] = slstm_trace_cmd(ROOT, [SLSTM_TRACE_SEQ])
         t0 = time.perf_counter()
         procs = {k: subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True)
                  for k, cmd in runs.items()}
         try:
             logs = {k: p.communicate(timeout=DRYRUN_TIMEOUT)[0] for k, p in procs.items()}
+            for k, (proc, log, deadline) in self.early.items():
+                proc.wait(timeout=max(deadline - time.monotonic(), 0))
+                procs[k], logs[k] = proc, log.read_text()
         finally:
             for p in procs.values():
                 p.kill()
+            self.stop()
         report["seconds"] = time.perf_counter() - t0
         failed = [k for k, p in procs.items() if p.returncode != 0]
         for k in failed:
@@ -3171,6 +3245,14 @@ class Smoke:
                          f" B, IB {cell['collective_by_link']['ib']:.4g} B); {cell['bottleneck']}-bound, "
                          f"useful {cell['useful_ratio']:.3f}; peak {cell['memory']['peak_gb']:.2f} GB "
                          f"per GPU; trace {cell['trace_seconds']} s, calibrated {cell['calibrated']}")
+        fit = report["cells"].get("phi3-mini-3.8b__train_4k__h100x32x8", {})
+        if fit.get("ok") and fit["memory"]["peak_gb"] > DRYRUN_FIT_GB:
+            failed.append(f"phi3 train_4k on h100x32x8 peaks at {fit['memory']['peak_gb']:.1f} GB"
+                          f" per GPU, above {DRYRUN_FIT_GB}")
+        if "slstm" not in failed:
+            report["slstm_trace_s"] = json.loads(logs["slstm"].strip().splitlines()[-1])
+            self.say(f"dryrun one sLSTM layer of xlstm-350m traced at 8 x {SLSTM_TRACE_SEQ} per GPU "
+                     f"on the h100x32x8 fake world: {report['slstm_trace_s']} s")
         if failed:
             raise AssertionError(f"dryrun: failed {failed}")
         card = report["card"] = json.loads((out / "card.json").read_text())
@@ -4219,17 +4301,22 @@ def main() -> int:
             s.phase(name, getattr(s, name))
 
     s.phase("device", s.device)
-    run("build")
-    for name in ("kernels", "main_path", "timing", "binary_timing", "drain_trace", "router",
-                 "paper_layer", "lm_serve", "lm_blocks", "lm_train", "multi_device"):
-        run(name, "build")
-    run("dryrun")
-    run("operators", "build")
-    run("operator_timing", "build", "operators")
-    run("unfused_kernels", "build")
-    run("unfused_path", "build", "unfused_kernels")
-    run("wide_path", "build")
-    run("unfused_timing", "build", "unfused_path", "wide_path")
+    try:
+        if only is None or "dryrun" in only:
+            s.start_dryrun_early()
+        run("build")
+        for name in ("kernels", "main_path", "timing", "binary_timing", "drain_trace", "router",
+                     "paper_layer", "lm_serve", "lm_blocks", "lm_train", "multi_device"):
+            run(name, "build")
+        run("dryrun")
+        run("operators", "build")
+        run("operator_timing", "build", "operators")
+        run("unfused_kernels", "build")
+        run("unfused_path", "build", "unfused_kernels")
+        run("wide_path", "build")
+        run("unfused_timing", "build", "unfused_path", "wide_path")
+    finally:
+        s.stop()
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     s.report["profiler_dropped"] = PROFILER_DROPPED

@@ -87,6 +87,15 @@ def frame_mesh(devices: int | None = None, *, device="cuda"):
     return init_device_mesh(dev.type, (n,), mesh_dim_names=("frames",))
 
 
+def heads_axis(n_heads: int) -> Optional[str]:
+    """``"model"`` where the ambient mesh's ``model`` axis has more than one
+    shard and divides ``n_heads`` (the heads then split over it, whole heads
+    to a rank), else ``None`` (replicated)."""
+    mesh = current_mesh()
+    m = 1 if mesh is None else _sharding.mesh_sizes(mesh).get("model", 1)
+    return "model" if m > 1 and n_heads % m == 0 else None
+
+
 def batch_axes() -> Tuple[str, ...]:
     mesh = current_mesh()
     if mesh is None:
@@ -175,6 +184,157 @@ def local_blocks(*tensors):
     mesh, place = first.device_mesh, first.placements
     return tuple(t.to_local() for t in tensors), \
         (lambda out: DTensor.from_local(out, mesh, place, run_check=False))
+
+
+def _block_index(mesh, place, dim: int) -> int:
+    """Index of this rank's block of tensor dim ``dim`` under ``place``: the
+    mesh dims that shard it, in mesh order, major first (0 where none does)."""
+    idx = 0
+    for i, p in enumerate(place):
+        if p.is_shard(dim):
+            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    return idx
+
+
+def _placed(t, mesh, place):
+    """``t`` redistributed to ``place`` (a plain ``t`` counts as replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return t if tuple(t.placements) == tuple(place) else t.redistribute(mesh, place)
+
+
+def like(t, ref):
+    """``t`` placed as the DTensor ``ref`` is; ``t`` as it is where ``ref``
+    is a plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    return _placed(t, ref.device_mesh, ref.placements) if isinstance(ref, DTensor) else t
+
+
+def new_state(build, device):
+    """The empty decode state ``build(device)``.  Under the ambient mesh it
+    is built on ``meta`` and placed by ``sharding.place_state``: each rank
+    builds its own block of each leaf, never the global cache."""
+    mesh = current_mesh()
+    if mesh is None:
+        return build(device)
+    return _sharding.place_state(build("meta"), mesh, device=device)
+
+
+def write_slots(buf, new, start: int, dim: int):
+    """A copy of the DTensor ``buf`` with ``new`` written at ``start`` along
+    ``dim``, placed as ``buf`` (``layers._write_slots`` on a placed cache:
+    DTensor refuses ``narrow().copy_()``).  ``new`` is brought to ``buf``'s
+    placements with ``dim`` whole; each rank writes the part of it that falls
+    in its own block of ``buf``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh, place = buf.device_mesh, tuple(buf.placements)
+    part = _placed(new, mesh, [Replicate() if p.is_shard(dim) else p for p in place]).to_local()
+    local = buf.to_local()
+    lo = _block_index(mesh, place, dim) * local.shape[dim]
+    a, b = max(start, lo), min(start + part.shape[dim], lo + local.shape[dim])
+    out = local.clone()
+    if a < b:
+        out.narrow(dim, a - lo, b - a).copy_(part.narrow(dim, a - start, b - a))
+    return DTensor.from_local(out, mesh, place, run_check=False)
+
+
+def attention_blocks(q, k, v):
+    """``((q, k, v), wrap)``: the blocks of q (B, S, H, hd) and k, v (B, T,
+    KV, hd) that this rank attends, as plain tensors, and ``wrap``, which
+    places an output of q's local layout as q is.
+
+    Each rank takes its own rows.  Where the ambient mesh's ``model`` axis
+    divides H, it also takes its own query heads, and only the KV heads those
+    use: its block of k and v where the axis divides KV, else their slice of
+    the gathered k and v (repeated to its query heads only where the heads'
+    groups do not fall evenly on it).  Elsewhere every rank attends every
+    head.  No score einsum runs on DTensors: torch 2.11 refuses it with the
+    batch and the heads both sharded."""
+    from torch.distributed.tensor import DTensor
+
+    q = constrain(q, "batch", None, heads_axis(q.shape[2]), None)
+    if not (isinstance(q, DTensor) and any(p.is_shard(2) for p in q.placements)):
+        return local_blocks(*(constrain(t, "batch", None, None, None) for t in (q, k, v)))
+    h, kvh = q.shape[2], k.shape[2]
+    k, v = (constrain(t, "batch", None, heads_axis(kvh), None) for t in (k, v))
+    mesh, place = q.device_mesh, q.placements
+    ql = q.to_local()
+    kl, vl = (t.to_local() if isinstance(t, DTensor) else t for t in (k, v))
+    if not (isinstance(k, DTensor) and any(p.is_shard(2) for p in k.placements)):
+        h_loc, group = ql.shape[2], h // kvh
+        q0 = _block_index(mesh, place, 2) * h_loc
+        idx = [(q0 + i) // group for i in range(h_loc)]
+        n = idx[-1] - idx[0] + 1
+        if h_loc % n == 0 and idx == [idx[0] + i // (h_loc // n) for i in range(h_loc)]:
+            kl, vl = (t[:, :, idx[0]:idx[0] + n] for t in (kl, vl))
+        else:
+            sel = torch.tensor(idx, device=kl.device)
+            kl, vl = (t.index_select(2, sel) for t in (kl, vl))
+    return (ql, kl, vl), (lambda out: DTensor.from_local(out, mesh, place, run_check=False))
+
+
+def vocab_sharded(logits) -> bool:
+    """Whether ``logits`` is a DTensor whose last (vocabulary) dim is split
+    over exactly one mesh dim of more than one shard."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(logits, DTensor):
+        return False
+    dims = [i for i, p in enumerate(logits.placements) if p.is_shard(logits.ndim - 1)]
+    return len(dims) == 1 and logits.device_mesh.size(dims[0]) > 1
+
+
+class _VocabNLL(torch.autograd.Function):
+    """Per-row ``logsumexp(x) - x[label]`` of logits whose vocabulary is split
+    over ``group``, on this rank's block ``local`` (vocabulary entries from
+    ``lo``): the row max, the sum of exponentials and the label's logit
+    (taken on the rank whose block holds it) are all-reduced over the group."""
+
+    @staticmethod
+    def forward(ctx, local, labels, lo, group):
+        dist = torch.distributed
+        peak = local.amax(-1)
+        dist.all_reduce(peak, op=dist.ReduceOp.MAX, group=group)
+        sumexp = (local - peak[..., None]).exp_().sum(-1)
+        dist.all_reduce(sumexp, group=group)
+        mine = (labels >= lo) & (labels < lo + local.shape[-1])
+        idx = torch.where(mine, labels - lo, 0).long()[..., None]
+        picked = torch.where(mine, torch.gather(local, -1, idx)[..., 0] - peak, 0.0)
+        dist.all_reduce(picked, group=group)
+        ctx.save_for_backward(local, peak, sumexp, idx, mine)
+        return torch.log(sumexp) - picked
+
+    @staticmethod
+    def backward(ctx, grad):
+        # softmax - onehot, on the local block only
+        local, peak, sumexp, idx, mine = ctx.saved_tensors
+        g = (local - peak[..., None]).exp_().mul_((grad / sumexp)[..., None])
+        g.scatter_add_(-1, idx, -torch.where(mine, grad, 0.0)[..., None])
+        return g, None, None, None
+
+
+def vocab_nll(logits, labels):
+    """``-log_softmax(logits)[label]`` per row, of float logits whose
+    vocabulary is split over one mesh dim (:func:`vocab_sharded`), on each
+    rank's own block: no rank holds a row's whole vocabulary, in the forward
+    or the backward.  The reductions are c10d all-reduces over that mesh dim
+    (three, of one value per row).  Returns a DTensor placed as the logits
+    with the vocabulary dim dropped; ``labels`` are brought to that
+    placement."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh, place, vdim = logits.device_mesh, tuple(logits.placements), logits.ndim - 1
+    (axis,) = [i for i, p in enumerate(place) if p.is_shard(vdim)]
+    rows = tuple(Replicate() if p.is_shard(vdim) else p for p in place)
+    local = logits.to_local()
+    nll = _VocabNLL.apply(local, _placed(labels, mesh, rows).to_local(),
+                          _block_index(mesh, place, vdim) * local.shape[-1],
+                          mesh.get_group(axis))
+    return DTensor.from_local(nll, mesh, rows, run_check=False)
 
 
 def whole(t):

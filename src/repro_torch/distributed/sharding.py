@@ -300,3 +300,38 @@ def state_specs_for_cache(state, mesh):
         return _state_leaf_spec(name, tuple(node.shape), sizes, baxes, bsize, tsize)
 
     return walk(state, "")
+
+
+# each decode-state leaf's initial value (``layers.init_kv_cache``,
+# ``mla.mla_init_cache``, ``rglru``'s and ``xlstm``'s ``*_init_state``); 0 for
+# every leaf not named here
+_STATE_FILL = {"pos": -1, "m": -1e30}
+
+
+def place_state(state, mesh, *, device):
+    """The empty decode state ``state`` placed on ``mesh`` by
+    :func:`state_specs_for_cache`: each leaf a DTensor whose block on this
+    rank is built at its local shape on ``device``, filled with the leaf's
+    initial value.  ``state`` gives only shapes and dtypes (built on
+    ``meta``): no tensor of the global size is allocated."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    sizes = mesh_sizes(mesh)
+
+    def build(leaf, spec, name):
+        shape = list(leaf.shape)
+        for dim, entry in enumerate(spec):
+            if entry is not None:
+                shape[dim] //= _ax_size(sizes, entry)
+        local = torch.full(shape, _STATE_FILL.get(name, 0), dtype=leaf.dtype, device=device)
+        return DTensor.from_local(local, mesh, placements(spec, mesh), run_check=False)
+
+    def walk(node, spec, name):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k], k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, s, name) for v, s in zip(node, spec))
+        return None if node is None else build(node, spec, name)
+
+    return walk(state, state_specs_for_cache(state, mesh), "")

@@ -264,16 +264,6 @@ def _on(tree, dev):
     return tree if tree is None else torch.empty_like(tree, device=dev)
 
 
-def _place_state(state, specs, mesh):
-    if isinstance(state, dict):
-        return {k: _place_state(v, specs[k], mesh) for k, v in state.items()}
-    if isinstance(state, (list, tuple)):
-        return type(state)(_place_state(v, s, mesh) for v, s in zip(state, specs))
-    if state is None:
-        return None
-    return sharding.shard(state, mesh, sharding.placements(specs, mesh))
-
-
 def build_step(cfg, shape: ShapeConfig, mesh, arch: str, microbatches: int = 1, *,
                device="cuda"):
     """The cell's step function and its arguments (train/prefill/decode),
@@ -294,10 +284,12 @@ def build_step(cfg, shape: ShapeConfig, mesh, arch: str, microbatches: int = 1, 
         if shape.kind == "train":
             return make_train_fn(cfg, microbatches), (params, adamw.init(params), batch)
         return _inference(lambda p, b: api.prefill(p, cfg, b, shape.seq_len)), (params, batch)
-    state = _on(_init_state_abstract(cfg, shape.global_batch, shape.seq_len, device="meta"), dev)
+    state = _init_state_abstract(cfg, shape.global_batch, shape.seq_len, device="meta")
     token = torch.zeros(specs["token"].shape, dtype=torch.int32, device=dev)
-    if mesh is not None:
-        state = _place_state(state, sharding.state_specs_for_cache(state, mesh), mesh)
+    if mesh is None:
+        state = _on(state, dev)
+    else:
+        state = sharding.place_state(state, mesh, device=dev)
         batched = shape.global_batch % _batch_div(mesh) == 0
         token = sharding.shard(token, mesh, _batch_spec(mesh, 1) if batched
                                else sharding.placements((None,), mesh))
@@ -317,13 +309,13 @@ def _inference(fn):
 def count_step(step, args, mesh=None) -> rf.StepCounter:
     """Run ``step(*args)`` once under a :class:`roofline.StepCounter` (and
     the mesh's context); the arguments' storages count as live from the
-    start."""
+    start.  The step's result is kept as the counter's ``result``."""
     counter = rf.StepCounter(mesh)
     ctx = dctx.mesh_context(mesh) if mesh is not None else contextlib.nullcontext()
     with counter, ctx:
         counter.track([list(a.parameters()) if isinstance(a, torch.nn.Module) else a
                        for a in args])
-        step(*args)
+        counter.result = step(*args)
     return counter
 
 
@@ -341,15 +333,18 @@ def _local_bytes(tree) -> int:
 
 def _measure(cfg, shape, mesh, arch, microbatches: int = 1, *, device="cuda") -> dict:
     """Per-rank counts of one traced step (``roofline.counts_of``) and the
-    bytes of its params, optimizer state and decode cache."""
+    bytes of its params, optimizer state and decode cache (the cache a
+    decode step is given, or the one a prefill returns)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     with FakeTensorMode(allow_non_fake_inputs=True):
         step, args = build_step(cfg, shape, mesh, arch, microbatches, device=device)
+        counter = count_step(step, args, mesh)
+        cache = {"decode": args[-1], "prefill": counter.result[-1]}.get(shape.kind)
         sizes = {"params_bytes": _local_bytes(args[0]),
                  "optimizer_bytes": _local_bytes(args[1]) if shape.kind == "train" else 0,
-                 "cache_bytes": _local_bytes(args[2]) if shape.kind == "decode" else 0}
-        return {**rf.counts_of(count_step(step, args, mesh)), **sizes}
+                 "cache_bytes": _local_bytes(cache)}
+        return {**rf.counts_of(counter), **sizes}
 
 
 def reduced_cfg(cfg, r: int):

@@ -30,7 +30,9 @@ local op; the op on the DTensor itself, whose shapes are global, is not):
   rides InfiniBand.
 - Memory: the live storages of the rank's tensors (params, optimizer state
   and inputs given to :meth:`StepCounter.track`, then every op's outputs),
-  each counted until it is freed; the peak is the most held at once.
+  each counted until it is freed; the peak is the most held at once.  An
+  op on the ``meta`` device (a template of shapes, such as the decode state
+  that ``sharding.place_state`` places) holds and moves nothing.
 
 Under ``FakeTensorMode`` nothing is allocated, so a 256-GPU step is counted
 in one process on any machine.
@@ -45,8 +47,9 @@ import weakref
 from typing import Dict, Iterable, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
+from torch.utils.flop_counter import flop_registry
 
 from repro_torch.launch.mesh import GPUS_PER_NODE, HBM_BW, IB_BW, NVLINK_BW, PEAK_FLOPS_BF16
 
@@ -176,11 +179,13 @@ class Roofline:
 
 def counts_of(counter: "StepCounter") -> dict:
     """A counted step's numbers: FLOPs, bytes, collective bytes (in total, by
-    kind and by link), collectives by kind, and the peak of live storage."""
+    kind and by link), collectives by kind, the peak of live storage and the
+    largest single storage."""
     cbytes, by_kind = collective_bytes(counter.records)
     return {"flops": counter.flops, "bytes": counter.bytes, "collective_bytes": cbytes,
             "by_kind": by_kind, "by_link": collective_by_link(counter.records),
-            "counts": collective_counts(counter.records), "peak_bytes": counter.peak_bytes}
+            "counts": collective_counts(counter.records), "peak_bytes": counter.peak_bytes,
+            "largest_bytes": counter.largest_bytes}
 
 
 def from_counts(arch: str, shape: str, mesh_name: str, chips: int, counts: dict,
@@ -199,13 +204,37 @@ def from_counts(arch: str, shape: str, mesh_name: str, chips: int, counts: dict,
 # ------------------------------------------------------------------ the counter
 
 def _is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
-
     return isinstance(x, DTensor)
 
 
 def _tensors(tree) -> list:
-    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+    """The tensors in ``tree`` (tuples, lists and dicts of them, as an op's
+    arguments and results are), found without pytree's per-node bookkeeping:
+    the counter runs this on every op.  A loop, not a recursive closure: a
+    closure's cycle would keep the tensors alive until the cyclic collector
+    ran, and the peak of live storage would count them."""
+    out, todo = [], [tree]
+    while todo:
+        x = todo.pop()
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, (tuple, list)):
+            todo.extend(x)
+        elif isinstance(x, dict):
+            todo.extend(x.values())
+    return out
+
+
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_dtensor", "c10d")
+_OP_NAMES: dict = {}         # op -> (namespace, name) where a collective's namespace, else None
+
+
+def _collective_name(func):
+    if func not in _OP_NAMES:
+        ns = func.namespace
+        _OP_NAMES[func] = (ns, func._schema.name.split("::")[-1]) \
+            if ns in _COLLECTIVE_NAMESPACES else None
+    return _OP_NAMES[func]
 
 
 def _tensor_bytes(tensors) -> int:
@@ -235,6 +264,8 @@ class StepCounter(TorchDispatchMode):
         self.records: list[Collective] = []
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.largest_bytes = 0          # the largest single storage seen
+        self.result = None              # what the counted step returned (dryrun.count_step)
         self._live: dict = {}
         self._shadow = 0
         self._axis_of: Dict[str, str] = {}
@@ -287,6 +318,7 @@ class StepCounter(TorchDispatchMode):
         self._live[key] = (weakref.ref(st, functools.partial(self._free, key)), n)
         self.live_bytes += n
         self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        self.largest_bytes = max(self.largest_bytes, n)
 
     def _free(self, key, _ref):
         _, n = self._live.pop(key)
@@ -304,7 +336,10 @@ class StepCounter(TorchDispatchMode):
         return self._axis_of.get(pg.group_name), link_of(dist.get_process_group_ranks(pg))
 
     def _collective(self, func, args, kwargs, out) -> bool:
-        ns, name = func.namespace, func._schema.name.split("::")[-1]
+        op = _collective_name(func)
+        if op is None:
+            return False
+        ns, name = op
         if ns == "_c10d_functional" and name in _FUNCTIONAL:
             kind, result = _FUNCTIONAL[name], _tensors(out)
         elif ns == "_dtensor" and name in _DTENSOR:
@@ -319,8 +354,6 @@ class StepCounter(TorchDispatchMode):
         return True
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        from torch.utils.flop_counter import flop_registry
-
         kwargs = kwargs or {}
         inputs = _tensors((args, kwargs))
         if self._shadow:
@@ -329,6 +362,8 @@ class StepCounter(TorchDispatchMode):
             return NotImplemented          # DTensor unwraps it; its local ops come back here
         out = func(*args, **kwargs)
         outputs = _tensors(out)
+        if any(t.device.type == "meta" for t in outputs):
+            return out          # shapes only (a template on `meta`): no storage, no traffic
         for t in outputs:
             self._track(t)
         if self._collective(func, args, kwargs, out):

@@ -150,7 +150,8 @@ def forward(params: Params, cfg, frames: torch.Tensor, tokens: torch.Tensor):
 
 def loss_fn(params: Params, cfg, batch: Dict[str, torch.Tensor]):
     logits, aux = forward(params, cfg, batch["extra_embeds"], batch["tokens"])
-    loss = _nll(logits.float(), batch["labels"]).mean()
+    # vocab-sharded over `model`, as transformer.loss_fn pins its logits
+    loss = _nll(dctx.constrain(logits.float(), "batch", None, "model"), batch["labels"]).mean()
     return loss, {"nll": loss, "aux": aux}
 
 
@@ -164,7 +165,8 @@ def prefill(params: Params, cfg, frames: torch.Tensor, tokens: torch.Tensor, t_c
     hd = cfg.resolved_head_dim
     state = {"self": [], "cross": []}
     for bp in params["dec_blocks"]:
-        cache = layers.init_kv_cache(b, t_cache, cfg.num_kv_heads, hd, device=x.device)
+        cache = dctx.new_state(lambda dev: layers.init_kv_cache(b, t_cache, cfg.num_kv_heads, hd,
+                                                                 device=dev), x.device)
         x, new_self, new_cross = _dec_block(bp, x, enc_out, cfg, positions, self_cache=cache,
                                             cache_pos=0)
         state["self"].append(new_self)

@@ -191,12 +191,9 @@ def multihead_attention(
     NaN), and the weights cast to ``v``'s dtype before the value product.
     Queries go in blocks of ``q_chunk`` (the reference maps over them).
     """
-    # under a mesh the heads are replicated and the batch stays sharded, and
-    # each rank attends its own rows on local tensors: DTensor's rules for
-    # the score einsum's flatten of a sharded batch (with sharded heads, in
-    # the backward) differ between torch versions and refuse it in some
-    q, k, v = (dctx.constrain(t, "batch", None, None, None) for t in (q, k, v))
-    (q, k, v), placed = dctx.local_blocks(q, k, v)
+    # under a mesh each rank attends its own rows, and its own heads where
+    # the `model` axis divides them, on local tensors
+    (q, k, v), placed = dctx.attention_blocks(q, k, v)
     q_positions, k_positions, k_valid = (dctx.whole(t) for t in (q_positions, k_positions,
                                                                  k_valid))
     b, s, h, hd = q.shape
@@ -257,8 +254,13 @@ def init_kv_cache(batch: int, t_cache: int, kvh: int, hd: int, dtype=torch.bfloa
 
 def _write_slots(buf: torch.Tensor, new: torch.Tensor, start: int, dim: int) -> torch.Tensor:
     """``lax.dynamic_update_slice_in_dim`` into a copy: ``new`` at ``start``
-    along ``dim`` (start clamped so that ``new`` fits)."""
+    along ``dim`` (start clamped so that ``new`` fits).  A placed cache (a
+    DTensor) is written on each rank's block (``context.write_slots``)."""
+    from torch.distributed.tensor import DTensor
+
     start = max(0, min(int(start), buf.shape[dim] - new.shape[dim]))
+    if isinstance(buf, DTensor):
+        return dctx.write_slots(buf, new, start, dim)
     out = buf.clone()
     out.narrow(dim, start, new.shape[dim]).copy_(new)
     return out
@@ -289,10 +291,12 @@ def gqa_apply(
     v = x @ params["wv"]
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    # under a mesh the projections' features are gathered before the split
-    # into heads (the attention replicates the heads anyway): DTensor cannot
-    # split a dim sharded over more shards than it has heads, or unevenly
-    q, k, v = (dctx.constrain(t, "batch", None, None) for t in (q, k, v))
+    # under a mesh the projections' features are split over `model` only
+    # where whole heads fall to each shard, else gathered before the split
+    # into heads: DTensor cannot split a dim sharded over more shards than it
+    # has heads, or unevenly
+    q = dctx.constrain(q, "batch", None, dctx.heads_axis(h))
+    k, v = (dctx.constrain(t, "batch", None, dctx.heads_axis(kvh)) for t in (k, v))
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, kvh, hd)
     v = v.reshape(b, s, kvh, hd)
@@ -324,9 +328,9 @@ def gqa_apply(
             t_cache = cache["k"].shape[1]
             if s >= t_cache:
                 new_cache = {
-                    "k": k[:, s - t_cache:].to(cache["k"].dtype),
-                    "v": v[:, s - t_cache:].to(cache["v"].dtype),
-                    "pos": positions[s - t_cache:].to(torch.int32),
+                    "k": dctx.like(k[:, s - t_cache:].to(cache["k"].dtype), cache["k"]),
+                    "v": dctx.like(v[:, s - t_cache:].to(cache["v"].dtype), cache["v"]),
+                    "pos": dctx.like(positions[s - t_cache:].to(torch.int32), cache["pos"]),
                 }
             else:
                 new_cache = {
@@ -348,13 +352,14 @@ def cross_attention_apply(params, x, enc_out, cfg, *, cache=None):
     """Decoder cross-attention over encoder output (keys/values from enc_out)."""
     b, s, d = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = (x @ params["wq"]).reshape(b, s, h, hd)
+    # split over `model` only where whole heads fall to each shard (gqa_apply)
+    q = dctx.constrain(x @ params["wq"], "batch", None, dctx.heads_axis(h)).reshape(b, s, h, hd)
     if cache is not None and "k" in cache:
         k, v = cache["k"], cache["v"]
     else:
         t = enc_out.shape[1]
-        k = (enc_out @ params["wk"]).reshape(b, t, kvh, hd)
-        v = (enc_out @ params["wv"]).reshape(b, t, kvh, hd)
+        k, v = (dctx.constrain(enc_out @ params[w], "batch", None, dctx.heads_axis(kvh))
+                .reshape(b, t, kvh, hd) for w in ("wk", "wv"))
     t = k.shape[1]
     out = multihead_attention(
         q, k, v, kind="full_bidir",

@@ -61,7 +61,9 @@ def mla_apply(
     qd = cfg.qk_nope_dim + cfg.qk_rope_dim
 
     qc = layers.apply_norm(params["q_norm"], x @ params["w_dq"], "rmsnorm")
-    q = (qc @ params["w_uq"]).reshape(b, s, h, qd)
+    # under a mesh the heads split over `model` where it divides them
+    q = dctx.constrain((qc @ params["w_uq"]).reshape(b, s, h, qd), "batch", None,
+                       dctx.heads_axis(h), None)
     q_nope, q_rope = q[..., : cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
     q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -97,8 +99,10 @@ def mla_apply(
             ctx = torch.einsum("bshr,rhv->bshv", ctx_lat, w_v.float())
             out = dctx.pin(ctx.reshape(b, 1, h * cfg.v_head_dim).to(x.dtype)) @ params["wo"]
             return out, new_cache
-        k_nope_full, v_full = _expand_kv(params, clat, cfg)
-        k_rope_full = ckr
+        # the cache is sequence-sharded under a mesh: expanded whole per row
+        k_nope_full, v_full = _expand_kv(
+            params, dctx.constrain(clat, "batch", None, None), cfg)
+        k_rope_full = dctx.constrain(ckr, "batch", None, None, None)
         k_positions, k_valid = cpos, cpos >= 0
     else:
         k_nope_full, v_full = _expand_kv(params, latent, cfg)
@@ -106,9 +110,12 @@ def mla_apply(
         k_positions, k_valid = positions, None
         new_cache = None
 
-    # concat nope+rope parts; rope key is shared across heads (broadcast)
-    k_full = torch.cat([k_nope_full, k_rope_full.expand(*k_rope_full.shape[:2], h,
-                                                        cfg.qk_rope_dim)], dim=-1)
+    # concat nope+rope parts; rope key is shared across heads (broadcast),
+    # split over `model` as the heads are
+    k_rope_full = dctx.constrain(k_rope_full.expand(*k_rope_full.shape[:2], h, cfg.qk_rope_dim),
+                                 "batch", None, dctx.heads_axis(h), None)
+    k_full = torch.cat([dctx.constrain(k_nope_full, "batch", None, dctx.heads_axis(h), None),
+                        k_rope_full], dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     out = layers.multihead_attention(
         q_full, k_full, v_full, kind="causal",

@@ -294,6 +294,11 @@ def forward(
 
 
 def _nll(logits, labels):
+    if dctx.vocab_sharded(logits):
+        # each rank on its own vocabulary shard, the softmax's sums reduced
+        # over the shards (the reference's GSPMD reduction); the gather's
+        # backward would build the global logits' shape on every rank
+        return dctx.vocab_nll(logits, labels)
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, labels[..., None].long())[..., 0]
 
@@ -327,7 +332,8 @@ def loss_fn(params: Params, cfg, batch: Dict[str, torch.Tensor]):
         # multi-token prediction: predict t+2 from [h_t ; emb(t+1)]
         h2 = mtp_hidden(params, cfg, h[:, :-1], tokens[:, 1:])
         # position t of h2 predicts token t+2, whose label is labels[t+1]
-        mtp_loss = _nll((h2 @ unembed).float(), labels[:, 1:]).mean()
+        mtp_logits = dctx.constrain((h2 @ unembed).float(), "batch", None, "model")
+        mtp_loss = _nll(mtp_logits, labels[:, 1:]).mean()
         metrics["mtp_nll"] = mtp_loss
         loss = loss + 0.3 * mtp_loss
     return loss + 0.01 * aux, metrics
@@ -372,7 +378,8 @@ def prefill(params: Params, cfg, tokens: torch.Tensor, t_cache: int,
     x = _embed(params, tokens, extra_embeds)
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, device=x.device)
-    state = init_decode_state(cfg, b, t_cache, device=x.device)
+    # under a mesh each rank builds only its block of each cache
+    state = dctx.new_state(lambda dev: init_decode_state(cfg, b, t_cache, device=dev), x.device)
     x, state = _run_stack(params, cfg, x, positions, state, 0)
     h = layers.apply_norm(params["final_norm"], x[:, -1:], cfg.norm)
     logits = (h @ _unembed(params, cfg))[:, 0].float()

@@ -124,9 +124,10 @@ def _mlstm_chunked(q, k, v, log_i, log_f, state, chunk: int = 256):
         log_f = padf(log_f, 0.0)
     carry = (state["C"], state["n"], state["m"])
     hs = []
-    for c in range(q.shape[1] // l):
-        part = slice(c * l, (c + 1) * l)
-        carry, h = _mlstm_chunk(carry, tuple(x[:, part] for x in (q, k, v, log_i, log_f)), dh)
+    # the chunks as views by one split each: a slice per chunk would cost its
+    # backward a zero-filled gradient of the whole sequence
+    for part in zip(*(torch.split(x, l, dim=1) for x in (q, k, v, log_i, log_f))):
+        carry, h = _mlstm_chunk(carry, part, dh)
         hs.append(h)
     h = torch.cat(hs, dim=1)[:, :s]
     C, n, m = carry
@@ -167,10 +168,22 @@ def mlstm_apply(params, x: torch.Tensor, cfg, state: dict | None = None) -> Tupl
         ht = dctx.constrain(h, "batch", None, None).reshape(b, 1, di)
         new_state = {"C": C, "n": n, "m": m_new}
     else:
-        if state is None:
-            state = mlstm_init_state(b, cfg, device=x.device)
+        # the chunked recurrence on each rank's own rows, as plain tensors
+        # (under a mesh: torch 2.11 has no DTensor rule for the backward of
+        # its cumsum, a flip); a fresh state is built at the local rows
+        parts = (q, k, v, log_i, log_f) + (() if state is None else
+                                           tuple(state[n] for n in ("C", "n", "m")))
+        blocks, placed = dctx.local_blocks(*(dctx.constrain(t, "batch", *(None,) * (t.dim() - 1))
+                                             for t in parts))
+        q, k, v, log_i, log_f = blocks[:5]
+        state = mlstm_init_state(q.shape[0], cfg, device=q.device) if state is None \
+            else dict(zip(("C", "n", "m"), blocks[5:]))
         h, new_state = _mlstm_chunked(q, k, v, log_i, log_f, state, chunk=cfg.mlstm_chunk)
-        ht = dctx.constrain(h, "batch", None, None, None).reshape(b, s, di)
+        new_state = {n: placed(t) for n, t in new_state.items()}
+        # pinned: its gradient comes from w_down's matmul split over the
+        # features, which the backward cannot unflatten into heads that the
+        # shards do not divide
+        ht = dctx.pin(placed(h).reshape(b, s, di))
     out = (ht.to(x.dtype) * gate) @ params["w_down"]
     return out, new_state
 
@@ -202,25 +215,40 @@ def slstm_init_state(batch: int, cfg, *, device="cuda") -> dict:
 
 def slstm_apply(params, x: torch.Tensor, cfg, state: dict | None = None) -> Tuple[torch.Tensor, dict]:
     b, s, d = x.shape
-    if state is None:
-        state = slstm_init_state(b, cfg, device=x.device)
     z_in = torch.tanh((x @ params["w_z"]).float())
     i_in = x.float() @ params["w_i"]
     f_in = x.float() @ params["w_f"]
     o_in = torch.sigmoid((x @ params["w_o"]).float())
-    c, n, m, h = state["c"], state["n"], state["m"], state["h"]
-    floor = torch.full((), 1e-6, dtype=torch.float32, device=x.device)
+    # the recurrence mixes no rows and no features: under a mesh each rank
+    # runs it on its own block of (B, d), as plain tensors, the state placed
+    # as the gates are (a step of DTensor ops costs more than a step's work)
+    gates = (z_in, i_in, f_in, o_in)
+    if state is not None:
+        gates += tuple(state[k][:, None] for k in ("c", "n", "m", "h"))
+    blocks, placed = dctx.local_blocks(*(dctx.constrain(t, "batch", None, "model") for t in gates))
+    z_in, i_in, f_in, o_in = blocks[:4]
+    if state is None:
+        # a fresh state of the local rows (slstm_init_state's values)
+        c, n, h = (torch.zeros_like(z_in[:, 0]) for _ in range(3))
+        m = torch.full_like(z_in[:, 0], -1e30)
+    else:
+        c, n, m, h = (t[:, 0] for t in blocks[4:])
+    floor = torch.full((), 1e-6, dtype=torch.float32, device=z_in.device)
     hs = []
-    for t in range(s):
-        lf = log_sigmoid(f_in[:, t])
-        m_new = torch.maximum(lf + m, i_in[:, t])
-        fg = torch.exp(lf + m - m_new)
-        ig = torch.exp(i_in[:, t] - m_new)
-        c = fg * c + ig * z_in[:, t]
+    # the steps as views by one unbind each: a select per step would cost its
+    # backward a zero-filled gradient of the whole sequence
+    for z_t, i_t, f_t, o_t in zip(*(t.unbind(1) for t in (z_in, i_in, f_in, o_in))):
+        lfm = log_sigmoid(f_t) + m
+        m_new = torch.maximum(lfm, i_t)
+        fg = torch.exp(lfm - m_new)
+        ig = torch.exp(i_t - m_new)
+        c = fg * c + ig * z_t
         n = fg * n + ig
-        h = o_in[:, t] * c / torch.maximum(n, floor)
+        h = o_t * c / torch.maximum(n, floor)
         m = m_new
         hs.append(h)
-    ht = torch.stack(hs, dim=1).to(x.dtype)
+    # the features whole again for the FFN's column-parallel matmuls
+    ht = dctx.constrain(placed(torch.stack(hs, dim=1).to(x.dtype)), "batch", None, None)
     out = x + layers.apply_mlp(params["ffn"], ht, "swiglu")
-    return out - x, {"c": c, "n": n, "m": m, "h": h}
+    return out - x, {k: placed(t[:, None])[:, 0] for k, t in (("c", c), ("n", n), ("m", m),
+                                                             ("h", h))}

@@ -140,7 +140,9 @@ def test_loss_logits_are_vocab_sharded(ranks):
     """The loss's logits are pinned ("batch", None, "model"): the batch over
     `data` and the vocab over `model`, as the reference pins them."""
     calls = [c.split("|") for c in ranks[0]["lm.constrain"].tolist()]
-    logits = [c for c in calls if c[0] == "('batch', None, 'model')"]
+    # the logits' call by its shape, (8, 16) tokens by the padded vocabulary:
+    # the attention pins its projections with the same spec, heads over `model`
+    logits = [c for c in calls if c[0] == "('batch', None, 'model')" and c[1] == "(8, 16, 512)"]
     assert len(logits) == 1, calls
     assert logits[0][2] == "('S(0)', 'S(2)')", logits
     embed = [c for c in calls if c[0] == "('batch', None, None)"]

@@ -16,7 +16,10 @@ reference's TPU dry run (``repro.launch.dryrun``).
 - A mini dry run in fake worlds of a (2, 2, 2) pod/data/model mesh, run in
   subprocesses with a timeout, all started together: the three archs of
   ``tests/distributed/test_dryrun_mini.py`` through a train and a decode
-  step (FLOPs and collective bytes > 0), ``paper-bayes-fusion`` at its smoke
+  step (FLOPs and collective bytes > 0, no storage as large as the global
+  logits), deepseek-v3 through a prefill and xlstm through a train step and
+  a prefill (each prefill's cache per rank at most the global cache over
+  the batch shards), ``paper-bayes-fusion`` at its smoke
   size (per pixel: bytes, no collective), ``main`` refusing a started
   process group, and the CLI's phi3-mini-3.8b ``train_4k`` cell on the
   256-rank world (``ok: true``, the reference's keys with two renamed).
@@ -167,12 +170,14 @@ def test_one_device_flops_beside_xla_cost_analysis(ref):
 
 MINI = textwrap.dedent("""
     import json, sys
+    from torch.utils._pytree import tree_flatten
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer
 
-    arch = sys.argv[1]
+    arch, kinds = sys.argv[1], sys.argv[2].split(",")
     out = {}
     with dryrun.fake_world(8):
         mesh = make_test_mesh(shape=(2, 2, 2), axes=("pod", "data", "model"), device="cpu")
@@ -187,15 +192,27 @@ MINI = textwrap.dedent("""
             except RuntimeError as e:
                 out["refused"] = str(e)
         else:
-            for shape in (ShapeConfig("mini", 32, 8, "train"),
-                          ShapeConfig("mini_decode", 64, 8, "decode")):
-                out[shape.kind] = dryrun._measure(cfg, shape, mesh, arch, device="cpu")
+            shapes = {"train": ShapeConfig("mini", 32, 8, "train"),
+                      "prefill": ShapeConfig("mini_prefill", 32, 8, "prefill"),
+                      "decode": ShapeConfig("mini_decode", 64, 8, "decode")}
+            for kind in kinds:
+                out[kind] = dryrun._measure(cfg, shapes[kind], mesh, arch, device="cpu")
+            # the prefill's cache at its global size, and the float32 logits of the batch
+            state = transformer.init_decode_state(cfg, 8, 32, device="meta")
+            out["global_cache_bytes"] = sum(t.numel() * t.element_size()
+                                            for t in tree_flatten(state)[0])
+            out["global_logits_bytes"] = 8 * 32 * transformer.layers.pad_vocab(cfg.vocab_size) * 4
     print(json.dumps(out))
 """)
 
 CLI = ["-m", "repro_torch.launch.dryrun", "--arch", "phi3-mini-3.8b", "--shape", "train_4k",
        "--mesh", "single", "--device", "cpu", "--out"]
-MINI_ARCHS = ("qwen2-72b", "llama4-scout-17b-a16e", "recurrentgemma-2b", "paper-bayes-fusion")
+# arch -> the step kinds its world counts
+MINI_ARCHS = {"qwen2-72b": "train,decode", "llama4-scout-17b-a16e": "train,decode",
+              "recurrentgemma-2b": "train,decode", "paper-bayes-fusion": "",
+              "deepseek-v3-671b": "prefill", "xlstm-350m": "train,prefill"}
+MINI_LM = ("qwen2-72b", "llama4-scout-17b-a16e", "recurrentgemma-2b")
+BATCH_SHARDS = 4              # the (2, 2, 2) mesh's pod x data
 
 
 @pytest.fixture(scope="module")
@@ -204,7 +221,7 @@ def mini(tmp_path_factory):
     out_dir = tmp_path_factory.mktemp("dryrun")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     env.pop("XLA_FLAGS", None)
-    runs = {arch: [sys.executable, "-c", MINI, arch] for arch in MINI_ARCHS}
+    runs = {arch: [sys.executable, "-c", MINI, arch, kinds] for arch, kinds in MINI_ARCHS.items()}
     runs["cli"] = [sys.executable, *CLI, str(out_dir)]
     procs = {k: subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                  text=True) for k, cmd in runs.items()}
@@ -222,7 +239,7 @@ def mini(tmp_path_factory):
     return got
 
 
-@pytest.mark.parametrize("arch", MINI_ARCHS[:3])
+@pytest.mark.parametrize("arch", MINI_LM)
 @pytest.mark.parametrize("kind", ["train", "decode"])
 def test_mini_dry_run_counts_work_and_collectives(mini, arch, kind):
     got = mini[arch][kind]
@@ -232,6 +249,28 @@ def test_mini_dry_run_counts_work_and_collectives(mini, arch, kind):
     assert got["peak_bytes"] >= got["params_bytes"] + got["optimizer_bytes"] + got["cache_bytes"]
     assert (got["optimizer_bytes"] > 0) == (kind == "train")
     assert (got["cache_bytes"] > 0) == (kind == "decode")
+
+
+@pytest.mark.parametrize("arch,kind", [("deepseek-v3-671b", "prefill"), ("xlstm-350m", "train"),
+                                       ("xlstm-350m", "prefill")])
+def test_mini_dry_run_traces_the_repaired_cells(mini, arch, kind):
+    """deepseek's MLA prefill writes its placed caches; xlstm's sLSTM runs
+    on each rank's rows.  A prefill's cache per rank is at most the global
+    cache over the batch shards: each rank built its own block only."""
+    got = mini[arch][kind]
+    assert got["flops"] > 0 and got["bytes"] > 0 and got["collective_bytes"] > 0
+    assert got["peak_bytes"] >= got["params_bytes"] + got["optimizer_bytes"] + got["cache_bytes"]
+    if kind == "prefill":
+        assert 0 < got["cache_bytes"] <= mini[arch]["global_cache_bytes"] / BATCH_SHARDS
+
+
+@pytest.mark.parametrize("arch", ["qwen2-72b", "llama4-scout-17b-a16e", "recurrentgemma-2b",
+                                  "xlstm-350m"])
+def test_mini_train_holds_no_global_logits(mini, arch):
+    """The loss runs on each rank's vocabulary shard: no storage of the
+    step is as large as the batch's float32 logits."""
+    got = mini[arch]["train"]
+    assert 0 < got["largest_bytes"] < mini[arch]["global_logits_bytes"]
 
 
 def test_mini_dry_run_of_the_fusion_workload(mini):

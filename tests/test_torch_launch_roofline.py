@@ -176,8 +176,10 @@ WORLD = textwrap.dedent("""
         def add_and_views():
             (a + b).view(-1).unsqueeze(0).t()
             a.t()
+        def meta():       # a template of shapes (a decode state placed by sharding.place_state)
+            (torch.zeros(M, K, device="meta") + torch.full((M, K), -1, device="meta")).sum()
         for name, fn in [("col", col), ("row", row), ("gather", gather), ("c10d", c10d),
-                         ("add", add_and_views)]:
+                         ("add", add_and_views), ("meta", meta)]:
             with dctx.mesh_context(mesh):
                 out[name] = counted(fn, mesh)
         out["plain_col"] = counted(lambda: x @ w[:, :N // 2])
@@ -249,6 +251,10 @@ def test_the_ports_own_c10d_calls_are_counted(world):
 def test_bytes_are_inputs_and_outputs_views_count_nothing(world):
     assert world["add"]["bytes"] == 3 * M * K * 4
     assert world["add"]["flops"] == 0
+
+
+def test_meta_templates_hold_and_move_nothing(world):
+    assert world["meta"] == {"flops": 0, "bytes": 0, "peak": 0, "records": []}
 
 
 def test_one_rank_mesh_counts_what_no_mesh_counts(world):

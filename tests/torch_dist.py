@@ -335,6 +335,165 @@ def models(rank, n, moe_x, lm_tokens, grad, **flat):
     return out
 
 
+def lm(rank, n, lm_tokens, attn_q, attn_kv, slstm_x, logits, labels):
+    """On a (2, 2, 2) ("pod", "data", "model") world, whose batch is split
+    over two axes: ``context.vocab_nll`` and its gradient beside
+    ``log_softmax`` on the same logits; ``multihead_attention`` with the
+    heads split over `model` (KV heads that divide it and KV heads that do
+    not) beside the unsharded call; the sLSTM on each rank's rows, in a
+    sequence and in a decode step, beside the unsharded one; the smoke
+    qwen2's loss and gradients (float32 weights) sharded and unsharded, and
+    the largest storage the sharded step holds; prefill and a decode step,
+    sharded and unsharded, of the smoke qwen2, starcoder2 (one KV head),
+    deepseek-v3 (no MoE) and xlstm (float32 weights), with the caches'
+    placements beside ``sharding.place_state``'s."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import prng
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.roofline import StepCounter
+    from repro_torch.models import api, layers, transformer, xlstm
+    from repro_torch.train import loop
+
+    mesh = _mesh((2, 2, 2), ("pod", "data", "model"))
+    out = {"coord": np.array(mesh.get_coordinate())}
+    rows = sharding.batch_sharding(mesh)
+    rep = [Replicate()] * 3
+
+    def placed(t, spec):
+        return sharding.shard(t, mesh, sharding.placements(spec, mesh))
+
+    # --- the vocab-sharded NLL on logits split (batch over pod, data; vocab over model)
+    x = torch.from_numpy(logits).requires_grad_(True)
+    lab = torch.from_numpy(labels)
+    nll = -torch.gather(torch.log_softmax(x, -1), -1, lab[..., None].long())[..., 0]
+    out["nll.plain"] = _np(nll)
+    out["nll.plain_grad"] = _np(torch.autograd.grad(nll.mean(), x)[0])
+    xd = placed(x.detach(), (("pod", "data"), None, "model")).requires_grad_(True)
+    with dctx.mesh_context(mesh):
+        nd = transformer._nll(xd, placed(lab, (("pod", "data"), None)))
+        out["nll.sharded"] = _np(nd)
+        out["nll.placements"] = np.array([str(p) for p in nd.placements])
+        out["nll.sharded_grad"] = _np(torch.autograd.grad(nd.mean(), xd)[0])
+
+    # --- attention with the heads split over `model` ---------------------------
+    q = torch.from_numpy(attn_q)
+    pos = torch.arange(q.shape[1])
+    for kvh in (2, 3, 1):    # KV heads that `model` divides, and two counts it does not
+        k, v = (torch.from_numpy(attn_kv[i, :, :, :kvh]) for i in (0, 1))
+        kw = dict(kind="causal", q_positions=pos, k_positions=pos, q_chunk=4)
+        out[f"attn{kvh}.plain"] = _np(layers.multihead_attention(q, k, v, **kw))
+        with dctx.mesh_context(mesh):
+            got = layers.multihead_attention(*(placed(t, (("pod", "data"), None, None, None))
+                                               for t in (q, k, v)), **kw)
+        out[f"attn{kvh}.sharded"] = _np(got)
+        out[f"attn{kvh}.placements"] = np.array([str(p) for p in got.placements])
+        out[f"attn{kvh}.local_heads"] = np.int32(got.to_local().shape[2])
+
+    # --- the sLSTM on each rank's rows ---------------------------------------
+    cfg = dataclasses.replace(get_smoke_config("xlstm-350m"), d_model=slstm_x.shape[-1])
+    sp = {k: (v.float() if torch.is_tensor(v) else {kk: vv.float() for kk, vv in v.items()})
+          for k, v in xlstm.slstm_init(prng.PRNGKey(3), cfg, device="cpu").items()}
+    xs = torch.from_numpy(slstm_x)
+    with torch.no_grad():
+        # the plain sLSTM on each batch shard's rows (a matmul's rounding
+        # depends on its row count), the shards' results concatenated
+        part = xs.shape[0] // 4
+        runs = [xlstm.slstm_apply(sp, xs[i:i + part], cfg) for i in range(0, xs.shape[0], part)]
+        steps = [xlstm.slstm_apply(sp, xs[i:i + part, :1], cfg, st)
+                 for i, (_, st) in zip(range(0, xs.shape[0], part), runs)]
+        y, y1 = (torch.cat([o for o, _ in rr]) for rr in (runs, steps))
+        st, st1 = ({k: torch.cat([s_[k] for _, s_ in rr]) for k in "cnmh"} for rr in (runs, steps))
+        with dctx.mesh_context(mesh):
+            xd = placed(xs, (("pod", "data"), None, None))
+            yd, sd = xlstm.slstm_apply(sp, xd, cfg)
+            y1d, sd1 = xlstm.slstm_apply(sp, xd[:, :1], cfg, sd)
+    for tag, a, b in (("seq", (y, st), (yd, sd)), ("step", (y1, st1), (y1d, sd1))):
+        out[f"slstm.{tag}.plain"] = np.stack([_np(a[0])[:, -1]] + [_np(a[1][k]) for k in "cnmh"])
+        out[f"slstm.{tag}.sharded"] = np.stack([_np(b[0])[:, -1]]
+                                               + [_np(b[1][k]) for k in "cnmh"])
+
+    # --- the sharded loss and its gradients (float32 weights) ------------------
+    def float32(model):
+        for mod in model.modules():
+            for name, w in list(mod.named_parameters(recurse=False)):
+                mod.register_parameter(name, torch.nn.Parameter(w.detach().float()))
+        return model
+
+    cfg = get_smoke_config("qwen2-72b")
+    tokens = torch.from_numpy(lm_tokens)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    with torch.no_grad():
+        out["loss.bf16_plain"] = _np(api.loss(api.init(cfg, prng.PRNGKey(0), device="cpu"), cfg,
+                                              batch)[0])
+        bf16 = sharding.distribute_params(api.init(cfg, prng.PRNGKey(0), device="cpu"), mesh)
+        with dctx.mesh_context(mesh):
+            out["loss.bf16_sharded"] = _np(api.loss(bf16, cfg, {
+                k: sharding.shard(v, mesh, rows) for k, v in batch.items()})[0])
+    plain = float32(api.init(cfg, prng.PRNGKey(0), device="cpu"))
+    sharded = sharding.distribute_params(float32(api.init(cfg, prng.PRNGKey(0), device="cpu")),
+                                         mesh)
+    loss_p, grads_p = loop._grads(plain, cfg, batch)
+    counter = StepCounter(mesh)
+    with counter, dctx.mesh_context(mesh):
+        loss_s, grads_s = loop._grads(sharded, cfg, {k: sharding.shard(v, mesh, rows)
+                                                     for k, v in batch.items()})
+    out["loss.f32"] = np.array([_np(loss_p), _np(loss_s)])
+    out["loss.grad_err"] = np.array(max(
+        float((grads_s[k].full_tensor() - g).abs().max() / g.abs().max())
+        for k, g in grads_p.items() if g.abs().max() > 0))
+    out["loss.largest_bytes"] = np.int64(counter.largest_bytes)
+    out["loss.all_reduces"] = np.int64(sum(r.kind == "all-reduce" and r.axis == "model"
+                                           for r in counter.records))
+
+    # --- prefill and decode, sharded and unsharded -----------------------------
+    for arch in ("qwen2-72b", "starcoder2-15b", "deepseek-v3-671b", "xlstm-350m"):
+        cfg = get_smoke_config(arch)
+        if arch == "starcoder2-15b":
+            # one KV head, which `model` does not divide: its cache splits the sequence
+            cfg = dataclasses.replace(cfg, num_kv_heads=1)
+        toks = torch.from_numpy(lm_tokens[:, :12] % cfg.vocab_size)
+        if arch == "deepseek-v3-671b":
+            # MLA without MoE: routing flips at bf16 near-ties, and the EP path
+            # keeps its capacity per batch shard (test_torch_dist_models holds it)
+            cfg = dataclasses.replace(cfg, moe=None)
+        params = api.init(cfg, prng.PRNGKey(1), device="cpu")
+        if arch == "xlstm-350m":
+            # float32 weights: the recurrences amplify the sharded matmuls'
+            # bf16 roundings (the plain path's decode takes float32 weights
+            # for this arch only: its states are float32)
+            params = float32(params)
+        with torch.no_grad():
+            logits_p, state_p = api.prefill(params, cfg, {"tokens": toks}, 16)
+            step_p, _ = api.decode(params, cfg, toks[:, -1], state_p, 12)
+            sharding.distribute_params(params, mesh)
+            with dctx.mesh_context(mesh):
+                logits_s, state_s = api.prefill(
+                    params, cfg, {"tokens": sharding.shard(toks, mesh, rows)}, 16)
+                step_s, _ = api.decode(params, cfg, sharding.shard(toks[:, -1], mesh,
+                                                                   sharding.placements(
+                                                                       (("pod", "data"),), mesh)),
+                                       state_s, 12)
+        want = sharding.place_state(transformer.init_decode_state(cfg, 8, 16, device="meta"),
+                                    mesh, device="cpu")
+        flat_s, flat_w, flat_p = (torch.utils._pytree.tree_flatten(t)[0]
+                                  for t in (state_s, want, state_p))
+        out[f"{arch}.logits"] = np.stack([_np(logits_p), _np(logits_s)])
+        out[f"{arch}.step"] = np.stack([_np(step_p), _np(step_s)])
+        # per leaf: its largest error, its largest value, whether it is bf16
+        out[f"{arch}.cache_err"] = np.array([
+            [np.abs(_np(a) - _np(b)).max(), np.abs(_np(a)).max(), a.dtype == torch.bfloat16]
+            for a, b in zip(flat_p, flat_s)], dtype=np.float64)
+        out[f"{arch}.cache_placed"] = np.array([
+            isinstance(a, DTensor) and tuple(a.placements) == tuple(b.placements)
+            and a.to_local().shape == b.to_local().shape for a, b in zip(flat_s, flat_w)])
+    return out
+
+
 def pipeline(rank, n, x, w1, w2):
     """GPipe on a (4, 2) ("pod", "data") world: the reference test's residual
     MLP stages over `pod` (4 stages) and over `data` (the first 2 stages), at
