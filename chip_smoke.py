@@ -182,14 +182,17 @@ Phases (any failure makes the script exit non-zero without the result line):
 14. dryrun -- the H100-cluster dry run (``repro_torch.launch.dryrun``), its
               processes under a timeout: (a) phi3-mini-3.8b x ``train_4k`` on
               both production meshes (``h100x32x8``, ``h100x2x16x8``),
-              llama4-scout x ``decode_32k``, deepseek-v3 x ``prefill_32k``,
+              llama4-scout x ``decode_32k``, deepseek-v3 x ``prefill_32k``
+              and ``train_4k``, recurrentgemma-2b x ``prefill_32k``,
               xlstm-350m x ``train_4k`` and ``paper-bayes-fusion`` x
               ``train_4k``, each ``python -m repro_torch.launch.dryrun`` on a
               fake world of 256 ranks under ``FakeTensorMode`` (xlstm's,
               5-10 minutes on one CPU core, started with the script): the
               three roofline terms, the bottleneck, peak GB per GPU and trace
-              seconds, any ``ok: false`` failing the phase, and phi3's
-              ``train_4k`` on ``h100x32x8`` failing it above 80 GB per GPU;
+              seconds, any ``ok: false`` failing the phase, and a cell of
+              ``DRYRUN_FIT`` (phi3 ``train_4k``, deepseek-v3 ``train_4k``,
+              recurrentgemma-2b ``prefill_32k``, on ``h100x32x8``) failing it
+              above 80 GB per GPU;
               the trace seconds of one sLSTM layer at ``train_4k``'s per-GPU
               batch, 1024 steps (``SLSTM_TRACE``); (b) one rank, no
               mesh: a phi3 train step at full width cut to 2 layers at
@@ -206,7 +209,12 @@ Phases (any failure makes the script exit non-zero without the result line):
               within atol 2e-6, rtol 1e-5) at M 1..3, K 1, 2, 8, 16 and 33,
               one row, row counts off the block grid, the unfused root
               (1024 rows of 4096 bits), the bench_latency and bayes_head
-              shapes, and counter origins that wrap 2**32.  Then
+              shapes, and counter origins that wrap 2**32; and
+              ``fusion_map`` at K 2, 3, 4, 16, 17, 64 and 130 x M 1..3 x R 1,
+              7, 4096 and 65,537, with a prior and with none, each shape on
+              the kernel its K picks (lanes per row for K a multiple of 4 up
+              to 128, whole rows per lane for K = 2, the shared-memory tile
+              otherwise).  Then
               the operator path through its entry points, counts reset just
               before and read just after: the full ``paper-bayes-fusion``
               batch (M=2, K=16, 8 frames of 1080x1920, 128 bits) through
@@ -226,7 +234,11 @@ Phases (any failure makes the script exit non-zero without the result line):
               ``fusion_map``; then the encoders where a launch is small:
               ``sne_encode`` at the unfused root (1024 rows of 4096 bits) and
               the shared-entropy root (one row), ``bayes_decide`` at the
-              ``bench_latency`` decision and a ``bayes_head`` batch.  The SNE
+              ``bench_latency`` decision and a ``bayes_head`` batch; and a
+              Fig 4 scene (64x64, M=2, K=2) through the whole
+              ``ops.fusion_map`` call with no prior: launches per call (one),
+              ms per call by CUDA events, the kernel's device time (the L2
+              flushed).  The SNE
               bound counts the shared body's least integer work per entropy
               word, logic on the 64 ALU lanes of an SM and multiplies and
               adds free to use all 128, as ``net_sweep``'s.
@@ -408,6 +420,12 @@ ENCODER_SHAPES = (("sne_encode", "unfused_root", (1, BATCH, 1, N_BITS)),
                   ("bayes_decide", "latency", (2, LAT_DECISIONS, 2, LAT_BITS)),
                   ("bayes_decide", "head", (2, HEAD_TOKENS, HEAD_CLASSES, HEAD_BITS)))
 FM_ATOL, FM_RTOL = 2e-6, 1e-5         # fusion_map: card logf/expf vs torch log/exp
+# fusion_map's shapes held in the operators phase: K -> the kernel it takes
+# (lanes per row for K a multiple of 4 up to 128, whole rows per lane for
+# K = 2, the shared-memory tile otherwise), at each M of FM_MODS and R of FM_ROWS
+FM_ROUTE = {2: "pair", 3: "tile", 4: "group", 16: "group", 17: "tile", 64: "group", 130: "tile"}
+FM_MODS, FM_ROWS = (1, 2, 3), (1, 7, 4096, 65537)
+FIG4_PIXELS = 64 * 64                 # a Fig 4 scene (M = 2, K = 2) through ops.fusion_map
 NM_KEY = np.array([0x85EBCA6B, 0x3C6EF372], np.uint32)     # seed words of the node_mux checks
 NM_WRAP = 2**32 - 5000                # a counter origin whose draws wrap 2**32
 NM_BIG = 65536                        # rows where the launch no longer dominates (32 MB out)
@@ -1938,6 +1956,8 @@ def _md_world(n, backend_name, steps):
 DRYRUN_CELLS = (("phi3-mini-3.8b", "train_4k", "both"),
                 ("llama4-scout-17b-a16e", "decode_32k", "single"),
                 ("deepseek-v3-671b", "prefill_32k", "single"),
+                ("deepseek-v3-671b", "train_4k", "single"),
+                ("recurrentgemma-2b", "prefill_32k", "single"),
                 ("xlstm-350m", "train_4k", "single"),
                 ("paper-bayes-fusion", "train_4k", "single"))
 DRYRUN_TIMEOUT = 420          # seconds for each dry-run process
@@ -1945,7 +1965,9 @@ DRYRUN_TIMEOUT = 420          # seconds for each dry-run process
 # fake ops per token, each traced forward, recomputed and backward): started
 # when the script starts, while the GPU phases run, under a timeout of their own
 DRYRUN_EARLY, DRYRUN_EARLY_TIMEOUT = {"xlstm-350m"}, 900
-DRYRUN_FIT_GB = 80            # phi3 train_4k on h100x32x8 must fit an H100's HBM
+DRYRUN_FIT_GB = 80            # the cells of DRYRUN_FIT must fit an H100's HBM per GPU
+DRYRUN_FIT = ("phi3-mini-3.8b__train_4k__h100x32x8", "deepseek-v3-671b__train_4k__h100x32x8",
+              "recurrentgemma-2b__prefill_32k__h100x32x8")
 SLSTM_TRACE_SEQ = 1024        # a quarter of train_4k's sequence
 # One sLSTM layer of xlstm-350m at full width (the model cut to that one
 # block), a train step traced on rank 0 of the h100x32x8 fake world at
@@ -3245,10 +3267,11 @@ class Smoke:
                          f" B, IB {cell['collective_by_link']['ib']:.4g} B); {cell['bottleneck']}-bound, "
                          f"useful {cell['useful_ratio']:.3f}; peak {cell['memory']['peak_gb']:.2f} GB "
                          f"per GPU; trace {cell['trace_seconds']} s, calibrated {cell['calibrated']}")
-        fit = report["cells"].get("phi3-mini-3.8b__train_4k__h100x32x8", {})
-        if fit.get("ok") and fit["memory"]["peak_gb"] > DRYRUN_FIT_GB:
-            failed.append(f"phi3 train_4k on h100x32x8 peaks at {fit['memory']['peak_gb']:.1f} GB"
-                          f" per GPU, above {DRYRUN_FIT_GB}")
+        for tag in DRYRUN_FIT:
+            fit = report["cells"].get(tag, {})
+            if fit.get("ok") and fit["memory"]["peak_gb"] > DRYRUN_FIT_GB:
+                failed.append(f"{tag} peaks at {fit['memory']['peak_gb']:.1f} GB per GPU, above "
+                              f"{DRYRUN_FIT_GB}")
         if "slstm" not in failed:
             report["slstm_trace_s"] = json.loads(logs["slstm"].strip().splitlines()[-1])
             self.say(f"dryrun one sLSTM layer of xlstm-350m traced at 8 x {SLSTM_TRACE_SEQ} per GPU "
@@ -3639,6 +3662,29 @@ class Smoke:
                 counts, pand_popcount_ref(words.view(m, r * k, -1))))
             self._note("bayes_decide", max(_int_err(dec, want_dec), _int_err(cnt, want_cnt)))
             self._note("fusion_map", _float_err(fused, fusion_map_ref(p, prior)))
+        # fusion_map at every shape of FM_ROUTE x FM_MODS x FM_ROWS, with a
+        # non-uniform prior and with none (the kernel's own uniform prior)
+        routes = {}
+        for k in FM_ROUTE:
+            prior = torch.rand(k, generator=gen, device="cuda") + 0.1
+            prior /= prior.sum()
+            uniform = torch.full((k,), 1.0 / k, device="cuda")
+            for m in FM_MODS:
+                for r in FM_ROWS:
+                    p = torch.rand((m, r, k), generator=gen, device="cuda")
+                    n = min(p.numel(), edge.numel())
+                    p.view(-1)[:n] = edge[:n]
+                    for given, plain in ((prior, prior), (None, uniform)):
+                        fused = fm_kernel.fusion_map_cuda(p, given)
+                        self._note("fusion_map", _float_err(fused, fusion_map_ref(p, plain)))
+                    routes[k] = fm_kernel.route(p, fused)
+        if routes != FM_ROUTE:
+            raise AssertionError(f"fusion_map took routes {routes}, not {FM_ROUTE}")
+        self.report["fusion_map_routes"] = routes
+        print(f"operators: fusion_map at K {sorted(FM_ROUTE)} x M {list(FM_MODS)} x R "
+              f"{list(FM_ROWS)}, a prior and none, on its routes {routes}: within atol "
+              f"{FM_ATOL}, rtol {FM_RTOL} (max abs err {self.op_err['fusion_map']:.3g})",
+              flush=True)
         print(f"operators: {len(cases)} cases (M 1..3, K 1/2/8/16/33, one row, rows off the "
               f"block grid, the unfused root, bench_latency and bayes_head shapes, counter "
               f"origins wrapping 2**32) equal to the plain versions: max abs err "
@@ -3846,6 +3892,7 @@ class Smoke:
             del words
         for name, size, shape in ENCODER_SHAPES:
             table[name][size] = self._encoder_row(name, size, *shape)
+        table["fusion_map"]["fig4"] = self._fig4_row()
         lat_p = torch.rand((2, LAT_DECISIONS, 2), device="cuda",
                            generator=torch.Generator(device="cuda").manual_seed(6))
         lat = {"fused": _event_ms(lambda: bayes_decide(OP_KEY, lat_p, LAT_BITS), 50),
@@ -3857,6 +3904,29 @@ class Smoke:
                  f"{lat['composed'] / lat['fused']:.2f}x the composition")
         self.report["operator_timing"] = table
         self.report["latency_decision_ms"] = lat
+
+    def _fig4_row(self):
+        """A Fig 4 scene (64x64 pixels, M = 2, K = 2) through the whole
+        ``ops.fusion_map`` call with no prior, as the paper layer calls it:
+        its launches per call, ms per call by CUDA events and the kernel's
+        device time, the L2 flushed before each launch."""
+        gen = torch.Generator(device="cuda").manual_seed(48)
+        p = torch.rand((2, FIG4_PIXELS, 2), generator=gen, device="cuda")
+        before = fm_kernel.fusion_map_cuda.launches
+        fusion_map(p)
+        launches = fm_kernel.fusion_map_cuda.launches - before
+        bound, by, ops, nbytes, _ = self._op_bound("fusion_map", p, 0)
+        row = {"shape": list(p.shape), "launches_per_call": launches,
+               "call_ms": _event_ms(lambda: fusion_map(p), 50),
+               "ms": _device_ms(lambda: fusion_map(p), kernel="fusion_map_kernel", cold=True),
+               "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+               "route": fm_kernel.route(p, torch.empty_like(p[0]))}
+        if launches != 1:
+            raise AssertionError(f"ops.fusion_map launched {launches} kernels in a call, not 1")
+        self.say(f"fusion_map fig4 (ops.fusion_map, M=2 R={FIG4_PIXELS} K=2, no prior, "
+                 f"{row['route']} kernel): {launches} launch per call, {row['call_ms']:.4f} ms per "
+                 f"call, {row['ms']:.4f} ms on the device, bound {bound:.6f} ms ({by})")
+        return row
 
     def _encoder_row(self, name, size, m, r, k, n_bits):
         """One encoder launch of shape (M, R, K) at n_bits, timed (sne_encode
@@ -4374,8 +4444,11 @@ def main() -> int:
                          mtp_gate_ms=s.mtp_gate["ms"], mtp_gate_bound_ms=s.mtp_gate["bound_ms"],
                          mtp_gate_launches=s.mtp_gate["launches"])
         if name == "fusion_map":
-            entry["composed_ms"] = line["composed_ms"]
-            entry["full_composed_ms"] = full["composed_ms"]
+            fig4 = sizes["fig4"]
+            entry.update(composed_ms=line["composed_ms"], full_composed_ms=full["composed_ms"],
+                         routes=s.report["fusion_map_routes"], fig4_call_ms=fig4["call_ms"],
+                         fig4_ms=fig4["ms"], fig4_bound_ms=fig4["bound_ms"],
+                         fig4_launches_per_call=fig4["launches_per_call"])
         for kernel, size, _ in ENCODER_SHAPES:
             if kernel == name:
                 entry[f"{size}_ms"] = sizes[size]["ms"]

@@ -186,6 +186,26 @@ def local_blocks(*tensors):
         (lambda out: DTensor.from_local(out, mesh, place, run_check=False))
 
 
+def param_block(p, rows, *spec):
+    """This rank's block of the parameter ``p`` placed by ``spec``, as a plain
+    tensor, for code that runs per rank on the blocks of ``rows`` (a DTensor
+    whose dim 0 holds the rows; :func:`local_blocks`): its gradient is each
+    rank's sum over its own rows, so it is summed over the mesh dims that
+    split the rows.  ``p`` as it is where it is a plain tensor."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    if not isinstance(p, DTensor):
+        return p
+    p = constrain(p, *spec)
+    grads = []
+    for r, q in zip(rows.placements, p.placements):
+        if r.is_shard(0) and not q.is_replicate():
+            raise ValueError(f"param_block: the parameter is split ({q}) over a mesh dim "
+                             f"that splits the rows")
+        grads.append(Partial() if r.is_shard(0) else q)
+    return p.to_local(grad_placements=grads)
+
+
 def _block_index(mesh, place, dim: int) -> int:
     """Index of this rank's block of tensor dim ``dim`` under ``place``: the
     mesh dims that shard it, in mesh order, major first (0 where none does)."""

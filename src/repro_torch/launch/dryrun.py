@@ -306,11 +306,12 @@ def _inference(fn):
     return step
 
 
-def count_step(step, args, mesh=None) -> rf.StepCounter:
-    """Run ``step(*args)`` once under a :class:`roofline.StepCounter` (and
-    the mesh's context); the arguments' storages count as live from the
-    start.  The step's result is kept as the counter's ``result``."""
-    counter = rf.StepCounter(mesh)
+def count_step(step, args, mesh=None, counter=None) -> rf.StepCounter:
+    """Run ``step(*args)`` once under ``counter`` (a new
+    :class:`roofline.StepCounter` by default) and the mesh's context; the
+    arguments' storages count as live from the start.  The step's result is
+    kept as the counter's ``result``."""
+    counter = rf.StepCounter(mesh) if counter is None else counter
     ctx = dctx.mesh_context(mesh) if mesh is not None else contextlib.nullcontext()
     with counter, ctx:
         counter.track([list(a.parameters()) if isinstance(a, torch.nn.Module) else a

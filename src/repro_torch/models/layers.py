@@ -100,6 +100,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+# --- products ---------------------------------------------------------------------
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with the reference's type promotion (jnp's ``@``): operands
+    of two float dtypes are both cast to the wider one, as where a bf16
+    cache's attention output meets float32 weights (a decode after a
+    microbatched train step).  Operands of one dtype multiply as they are."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a @ b
+
+
 # --- MLPs -------------------------------------------------------------------------
 
 def mlp_init(key, d: int, d_ff: int, kind: str, dtype=torch.bfloat16, *, device="cuda"):
@@ -170,6 +183,15 @@ def _mask_bias(kind: str, q_pos, k_pos, window: int, chunk: int) -> torch.Tensor
     return torch.where(ok, zero, torch.full_like(zero, -torch.inf))
 
 
+def _batched(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (B, H, X, Y) as it is where B and H merge into one batch dim of
+    a product without a copy (one row, or H's block contiguous), else a
+    contiguous copy: the layout einsum gives its batched product."""
+    if t.shape[0] == 1 or t.stride(0) == t.shape[1] * t.stride(1):
+        return t
+    return t.contiguous()
+
+
 def multihead_attention(
     q: torch.Tensor,            # (B, S, H, hd)
     k: torch.Tensor,            # (B, T, KV, hd)
@@ -203,7 +225,11 @@ def multihead_attention(
         k = torch.repeat_interleave(k, group, dim=2)
         v = torch.repeat_interleave(v, group, dim=2)
     scale = hd ** -0.5
-    kf = k.float()
+    # k and v laid out once as the products take them, (B, H, hd, T) and
+    # (B, H, T, vd): einsum would copy them so for every query chunk, and
+    # the backward keep every copy
+    kt = _batched(k.float().permute(0, 2, 3, 1))
+    vt = _batched(v.permute(0, 2, 1, 3))
     valid_bias = None
     if k_valid is not None:
         zero = torch.zeros((), dtype=torch.float32, device=k_valid.device)
@@ -211,17 +237,18 @@ def multihead_attention(
 
     def attend(q_blk, qpos_blk):
         # q_blk: (B, C, H, hd)
-        scores = torch.einsum("bchd,bthd->bhct", q_blk.float(), kf)
+        scores = torch.einsum("bchd,bhdt->bhct", q_blk.float(), kt)
         scores = scores * scale
         bias = _mask_bias(kind, qpos_blk, k_positions, window, chunk)   # (C, T)
         if valid_bias is not None:
             bias = bias + valid_bias
         scores = scores + bias[None, None]
-        smax = torch.clamp(scores.amax(-1, keepdim=True), min=-1e30)
+        # max, not amax: its backward keeps the indices, not the scores
+        smax = torch.clamp(scores.max(-1, keepdim=True).values, min=-1e30)
         w = torch.exp(scores - smax)
         denom = torch.clamp(w.sum(-1, keepdim=True), min=1e-30)
         w = (w / denom).to(v.dtype)
-        return torch.einsum("bhct,bthd->bchd", w, v)
+        return torch.einsum("bhct,bhtd->bchd", w, vt)
 
     vd = v.shape[-1]  # value head dim may differ from hd (MLA)
     if s <= q_chunk:
@@ -340,7 +367,7 @@ def gqa_apply(
                 }
         else:
             new_cache = None
-    out = dctx.pin(out.reshape(b, s, h * hd)) @ params["wo"]
+    out = matmul(dctx.pin(out.reshape(b, s, h * hd)), params["wo"])
     return out, new_cache
 
 
@@ -367,5 +394,5 @@ def cross_attention_apply(params, x, enc_out, cfg, *, cache=None):
         k_positions=torch.arange(t, device=x.device),
         q_chunk=cfg.q_chunk,
     )
-    out = dctx.pin(out.reshape(b, s, h * hd)) @ params["wo"]
+    out = matmul(dctx.pin(out.reshape(b, s, h * hd)), params["wo"])
     return out, {"k": k, "v": v}

@@ -43,7 +43,8 @@ def mla_init(key, cfg, dtype=torch.bfloat16, *, device="cuda"):
 def _expand_kv(params, latent: torch.Tensor, cfg):
     """latent (B, T, kv_lora) -> k_nope (B,T,H,nope), v (B,T,H,vdim)."""
     b, t, _ = latent.shape
-    kv = (latent @ params["w_ukv"]).reshape(b, t, cfg.num_heads, cfg.qk_nope_dim + cfg.v_head_dim)
+    kv = layers.matmul(latent, params["w_ukv"]).reshape(b, t, cfg.num_heads,
+                                                         cfg.qk_nope_dim + cfg.v_head_dim)
     return kv[..., : cfg.qk_nope_dim], kv[..., cfg.qk_nope_dim:]
 
 
@@ -97,7 +98,8 @@ def mla_apply(
             w = torch.softmax(scores, dim=-1)
             ctx_lat = torch.einsum("bhst,btr->bshr", w, clat_f)
             ctx = torch.einsum("bshr,rhv->bshv", ctx_lat, w_v.float())
-            out = dctx.pin(ctx.reshape(b, 1, h * cfg.v_head_dim).to(x.dtype)) @ params["wo"]
+            out = layers.matmul(dctx.pin(ctx.reshape(b, 1, h * cfg.v_head_dim).to(x.dtype)),
+                                params["wo"])
             return out, new_cache
         # the cache is sequence-sharded under a mesh: expanded whole per row
         k_nope_full, v_full = _expand_kv(
@@ -122,7 +124,7 @@ def mla_apply(
         q_positions=positions, k_positions=k_positions, k_valid=k_valid,
         q_chunk=cfg.q_chunk,
     )
-    out = dctx.pin(out.reshape(b, s, h * cfg.v_head_dim)) @ params["wo"]
+    out = layers.matmul(dctx.pin(out.reshape(b, s, h * cfg.v_head_dim)), params["wo"])
     return out, new_cache
 
 

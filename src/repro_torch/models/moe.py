@@ -171,23 +171,24 @@ def _moe_ep(params, x, cfg, mesh):
     return out.full_tensor(), aux.to_local()
 
 
-def _combine(gathered: torch.Tensor, order: torch.Tensor, t: int, k: int) -> torch.Tensor:
-    """``zeros((t, D)).at[stok].add(gathered)``: each token's k rows of the
-    sorted ``gathered`` added from zero in sorted order, rounded per add."""
+def _combine(take, order: torch.Tensor, t: int, k: int) -> torch.Tensor:
+    """``zeros((t, D)).at[stok].add(gathered)``, where ``take(j)`` gives the
+    rows of the sorted ``gathered`` at positions ``j``: each token's k rows
+    added from zero in sorted order, rounded per add, one row per token at a
+    time (the whole (T*k, D) ``gathered`` is never built)."""
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.numel(), device=order.device)
-    rows = torch.sort(inv.reshape(t, k), dim=-1)[0]              # sorted slots per token
-    g = gathered[rows]                                           # (t, k, D)
-    out = torch.zeros_like(g[:, 0])
-    for j in range(k):
-        out = out + g[:, j]
+    out = None
+    for j in torch.sort(inv.reshape(t, k), dim=-1)[0].unbind(1):   # sorted slots per token
+        g = take(j)
+        out = (torch.zeros_like(g) if out is None else out) + g
     return out
 
 
 def _moe_local(params, x: torch.Tensor, cfg, expert0: int | None = None):
     """The layer on local tensors.  ``expert0`` (the EP path) says that
     ``params`` hold only experts ``expert0 ..`` of the ``num_experts``: ids
-    outside them go to the overflow row and add nothing."""
+    outside them go to the overflow slot and add nothing."""
     e = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -235,16 +236,24 @@ def _moe_local(params, x: torch.Tensor, cfg, expert0: int | None = None):
                                        side="left")
         pos_in_e = torch.arange(t * k, device=x.device) - grp_start[torch.clamp(sid, 0, e_local)]
         keep = (pos_in_e < cap) & (sid < e_local)                # capacity drop
-        dst_e = torch.where(keep, sid, e_local)                  # overflow row
-        dst_c = torch.where(keep, pos_in_e % cap, 0)
-        buf = torch.zeros((e_local + 1, cap, d), dtype=x.dtype, device=x.device)
-        buf[dst_e, dst_c] = xt[stok]        # duplicates only in the dropped overflow row
-        out_buf = _expert_ffn(params, buf[:e_local], cfg.mlp)
+        # each kept assignment's slot in the (E, C) buffer; the rest one slot
+        # past it.  Only the buffer's rows are gathered (and, on the EP path,
+        # only this shard's experts'): no (T*k, D) tensor of every assignment
+        slot = torch.where(keep, sid * cap + pos_in_e % cap, e_local * cap)
+        src = torch.full((e_local * cap + 1,), t, dtype=stok.dtype, device=x.device)
+        src[slot] = stok                    # duplicates only in the dropped last slot
+        rows = torch.cat([xt, torch.zeros_like(xt[:1])], dim=0)  # row t: an empty slot's zeros
+        buf = rows[src[:-1]].reshape(e_local, cap, d)
+        out_buf = _expert_ffn(params, buf, cfg.mlp).reshape(e_local * cap, d)
         out_buf = torch.cat([out_buf, torch.zeros_like(out_buf[:1])], dim=0)
-        # combine: gather each (token, k) slot's expert output, weight, sum
-        gathered = out_buf[dst_e, dst_c] * sw[:, None]           # (T*k, D)
-        gathered = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))
-        out = _combine(gathered, order, t, k)
+        # each slot's output times its assignment's weight, in slot space:
+        # the product's backward keeps the buffer, not k gathered copies.
+        # The dropped assignments all read the last slot, whose row is zeros
+        slot_w = torch.zeros((e_local * cap + 1,), dtype=sw.dtype, device=x.device)
+        slot_w[slot] = sw
+        out_buf = out_buf * slot_w[:, None]
+        # combine: gather each (token, k) slot's weighted output, sum
+        out = _combine(lambda j: out_buf[slot[j]], order, t, k)
 
     if e.num_shared and "shared" in params:
         out = out + layers.apply_mlp(params["shared"], xt, cfg.mlp)

@@ -21,6 +21,7 @@ from typing import Callable, Sequence, Tuple
 import torch
 
 from repro_torch.core import prng
+from repro_torch.distributed import context as dctx
 from repro_torch.models import layers
 
 _C = 8.0  # RG-LRU decay sharpness constant (Griffin appendix)
@@ -118,20 +119,32 @@ def rglru_apply(params, x: torch.Tensor, cfg, state: dict | None = None) -> Tupl
     """x: (B, S, D) -> (out (B, S, D), new_state {"conv", "h"})."""
     xb = x @ params["wx"]
     gate_branch = layers.gelu(x @ params["wy"])
-    conv_state = None if state is None else state["conv"]
-    xc, new_conv = _conv1d(xb, params["conv"], conv_state)
+    # the conv and the recurrence mix no rows and no features: under a mesh
+    # each rank runs them on its own block of (B, S, W), as plain tensors,
+    # the state placed as the features are (DTensor would redistribute the
+    # scan's strided slices as it saw fit)
+    feats = ("batch", None, "model")
+    rows = [dctx.constrain(t, *feats) for t in (xb,) + (() if state is None else (state["conv"],))]
+    kernel = dctx.param_block(params["conv"], rows[0], None, "model")
+    lam = dctx.param_block(params["lambda_raw"], rows[0], "model")
+    (xb, *conv_state), placed = dctx.local_blocks(*rows)
+    xc, new_conv = _conv1d(xb, kernel, conv_state[0] if conv_state else None)
+    xc = placed(xc)
 
     i_gate = torch.sigmoid(xc @ params["w_input_gate"])
     r_gate = torch.sigmoid(xc @ params["w_rec_gate"])
-    log_lam = -_C * softplus(params["lambda_raw"]) * r_gate.float()
+    gates = (i_gate, r_gate, xc) + (() if state is None else (state["h"][:, None],))
+    (i_gate, r_gate, xc, *h0), placed = dctx.local_blocks(
+        *(dctx.constrain(t, *feats) for t in gates))
+    log_lam = -_C * softplus(lam) * r_gate.float()
     a = torch.exp(log_lam)                                 # decay in (0,1)
     gated_x = (i_gate * xc).float()
     # normalized input scaling (Griffin): sqrt(1 - a^2)
-    one = torch.ones((), dtype=torch.float32, device=x.device)
+    one = torch.ones((), dtype=torch.float32, device=a.device)
     beta = torch.sqrt(torch.clamp(one - torch.square(a), min=1e-6).double()).float()
     u = beta * gated_x
 
-    h0 = None if state is None else state["h"]
+    h0 = h0[0][:, 0] if h0 else None
     if x.shape[1] == 1 and h0 is not None:
         h = a[:, 0] * h0 + u[:, 0]
         ht = h[:, None, :]
@@ -143,8 +156,9 @@ def rglru_apply(params, x: torch.Tensor, cfg, state: dict | None = None) -> Tupl
         _, h_s = associative_scan(_combine, [a, u], axis=1)
         ht = h_s
         new_h = h_s[:, -1]
-    out = (ht.to(x.dtype) * gate_branch) @ params["wo"]
-    return out, {"conv": new_conv, "h": new_h}
+    out = (placed(ht.to(x.dtype)) * gate_branch) @ params["wo"]
+    # the state as tensors of its own size, not views into the sequence's
+    return out, {"conv": placed(new_conv.clone()), "h": placed(new_h[:, None].clone())[:, 0]}
 
 
 def rglru_init_state(batch: int, cfg, dtype=torch.bfloat16, *, device="cuda") -> dict:

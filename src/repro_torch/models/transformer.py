@@ -266,9 +266,10 @@ def forward(
     positions = torch.arange(x.shape[1], device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    for pparams, kind in zip(params["prefix"], prefix):
-        x, _, aux = block_apply(pparams, x, cfg, _prefix_kind(kind), positions=positions)
-        aux_total = aux_total + aux
+    def prefix_block(x, i):
+        x, _, aux = block_apply(params["prefix"][i], x, cfg, _prefix_kind(prefix[i]),
+                                positions=positions)
+        return x, aux
 
     def superblock(x, r):
         aux_step = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -277,11 +278,11 @@ def forward(
             aux_step = aux_step + aux
         return dctx.constrain(x, "batch", "model", None) if cfg.seq_shard else x, aux_step
 
+    for i in range(len(prefix)):
+        x, aux = _recomputed(prefix_block, x, i, sharded_only=True)
+        aux_total = aux_total + aux
     for r in range(reps):
-        if torch.is_grad_enabled():
-            x, aux = dctx.recomputed(superblock, x, r)
-        else:
-            x, aux = superblock(x, r)
+        x, aux = _recomputed(superblock, x, r)
         aux_total = aux_total + aux
     h = layers.apply_norm(params["final_norm"], x, cfg.norm)
     # under a mesh: DTensor has no rule for the unembed matmul's flatten of
@@ -291,6 +292,19 @@ def forward(
     if return_hidden:
         return h, aux_total
     return h @ _unembed(params, cfg), aux_total
+
+
+def _recomputed(fn, *args, sharded_only: bool = False):
+    """``fn(*args)``; where autograd records, recomputed in the backward
+    (``context.recomputed``), so that a block's activations live only
+    while its own backward runs.  ``sharded_only``: only under a mesh.  The
+    reference recomputes the repeated blocks alone; under a mesh the port
+    also recomputes deepseek's dense prefix and MTP block, whose float32
+    attention scores would otherwise stay live through the whole step (105 GB
+    per GPU at ``train_4k``)."""
+    if torch.is_grad_enabled() and (not sharded_only or dctx.current_mesh() is not None):
+        return dctx.recomputed(fn, *args)
+    return fn(*args)
 
 
 def _nll(logits, labels):
@@ -308,8 +322,12 @@ def mtp_hidden(params: Params, cfg, h: torch.Tensor, next_tokens: torch.Tensor) 
     block of ``cfg.pattern[0]``, the head's norm.  Position t predicts t+2."""
     emb_next = dctx.embed(params["embed"], next_tokens)
     h2 = torch.cat([h, emb_next], dim=-1) @ params["mtp"]["proj"]
-    h2, _, _ = block_apply(params["mtp"]["block"], h2, cfg, cfg.pattern[0],
-                           positions=torch.arange(h2.shape[1], device=h2.device))
+
+    def block(h2):
+        return block_apply(params["mtp"]["block"], h2, cfg, cfg.pattern[0],
+                           positions=torch.arange(h2.shape[1], device=h2.device))[0]
+
+    h2 = _recomputed(block, h2, sharded_only=True)
     return layers.apply_norm(params["mtp"]["norm"], h2, cfg.norm)
 
 

@@ -23,6 +23,7 @@ from repro_torch.kernels import pand_popcount, sne_encode
 from repro_torch.kernels.bayes_decide import kernel as BK
 from repro_torch.kernels.bayes_decide.ref import bayes_decide_ref
 from repro_torch.kernels.fusion_map import kernel as FK
+from repro_torch.kernels.fusion_map.ref import fusion_map_ref
 from repro_torch.kernels.pand_popcount import kernel as PK
 from repro_torch.kernels.sne_encode import kernel as SK
 from repro_torch.kernels.sne_encode.ref import sne_encode_ref
@@ -159,6 +160,69 @@ def test_fusion_map_kernel_within_tolerance(m, r, k, uniform, cuda_device):
     torch.testing.assert_close(got.cpu(), want, atol=2e-6, rtol=1e-5)
 
 
+# the redesigned kernel's routes: K a multiple of 4 up to 128 on lanes per
+# row, K = 2 on whole rows per lane, any other K on the shared-memory tile
+FM_ROUTE = {2: "pair", 3: "tile", 4: "group", 16: "group", 17: "tile", 64: "group", 130: "tile"}
+FM_ROWS = (1, 7, 4096, 65537)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", sorted(FM_ROUTE))
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_fusion_map_kernel_on_every_route(m, k, cuda_device):
+    """Every row count of FM_ROWS, a non-uniform prior and none (uniform),
+    against the plain version on the same inputs on the card and on the CPU,
+    within atol 2e-6, rtol 1e-5."""
+    rs = np.random.default_rng(10 * m + k)
+    for r in FM_ROWS:
+        p = torch.from_numpy(_probs(r, (m, r, k))).to(cuda_device)
+        for prior in (torch.from_numpy(rs.dirichlet(np.ones(k)).astype(np.float32)), None):
+            dev_prior = None if prior is None else prior.to(cuda_device)
+            before = FK.fusion_map_cuda.launches
+            got = FK.fusion_map_cuda(p, dev_prior)
+            assert FK.fusion_map_cuda.launches == before + 1
+            assert FK.route(p, got) == FM_ROUTE[k]
+            plain = torch.full((k,), 1.0 / k) if prior is None else prior
+            want = fusion_map_ref(p, plain.to(cuda_device))
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, atol=2e-6, rtol=1e-5)
+            torch.testing.assert_close(got.cpu(), fusion_map_ref(p.cpu(), plain),
+                                       atol=2e-6, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fusion_map_on_an_unaligned_tensor_takes_the_tile_kernel(cuda_device):
+    m, r, k = 2, 1000, 16
+    p = torch.from_numpy(_probs(3, (m, r, k))).to(cuda_device)
+    buf = torch.empty(p.numel() + 1, device=cuda_device)
+    shifted = buf[1:].view(m, r, k)          # 4 bytes past a 16-byte boundary
+    shifted.copy_(p)
+    got = FK.fusion_map_cuda(shifted)
+    assert FK.route(shifted, got) == "tile"
+    torch.testing.assert_close(got, FK.fusion_map_cuda(p), atol=2e-6, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fusion_map_call_is_one_launch_and_no_copy(cuda_device):
+    """``ops.fusion_map`` on a tensor on the card, with no prior (Fig 4's
+    64x64 scene, M = 2, K = 2): one launch of the kernel, and nothing else on
+    the card -- no host-to-device copy of a prior, no log-prior ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    p = torch.from_numpy(_probs(4, (2, 64 * 64, 2))).to(cuda_device)
+    fusion_map(p, device=cuda_device)
+    torch.cuda.synchronize()
+    before = FK.fusion_map_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = fusion_map(p, device=cuda_device)
+        torch.cuda.synchronize()
+    assert FK.fusion_map_cuda.launches == before + 1
+    on_card = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(on_card) == 1 and "fusion_map_kernel_pair" in on_card[0], on_card
+    torch.testing.assert_close(got.cpu(), fusion_map(p.cpu(), device="cpu"), atol=2e-6,
+                               rtol=1e-5)
+
+
 @pytest.mark.cuda
 def test_stochastic_head_on_the_card(cuda_device):
     x = np.random.default_rng(0).normal(0.0, 2.0, (3, 64, 50)).astype(np.float32)
@@ -198,6 +262,8 @@ def test_wrappers_reject_bad_input(cuda_device):
         FK.fusion_map_cuda(p, torch.full((4,), 0.25, device=cuda_device))   # prior of K=4
     with pytest.raises(ValueError):
         FK.fusion_map_cuda(p, torch.full((3,), 1 / 3))                      # prior on the CPU
+    with pytest.raises(ValueError):
+        FK.fusion_map_cuda(p.transpose(1, 2).contiguous().transpose(1, 2))  # not contiguous
     with pytest.raises(ValueError):
         sne_encode(KD, p, 100, device=cuda_device)
     with pytest.raises(ValueError):

@@ -16,9 +16,12 @@ its gradients within 1e-4 of their largest value (the bounds of
 reference's plain ``api.loss``; prefill and decode logits and each bf16
 cache leaf within the LM path's atol 1e-1, rtol 2e-2 of the unsharded ones
 (bf16 weights: the sharded matmuls round their partial sums to bf16, and one
-ulp of a cache at its magnitude of 4 is 0.03); xlstm's float32 states within
-1e-4 of each leaf's largest value (float32 weights: its recurrences amplify
-bf16 roundings, 4 % of a state at bf16).
+ulp of a cache at its magnitude of 4 is 0.03); xlstm's and recurrentgemma's
+float32 states within 1e-4 of each leaf's largest value (float32 weights:
+their recurrences amplify bf16 roundings, 4 % of a state at bf16); the
+RG-LRU's conv and scan on each rank's rows bit for bit beside the plain
+RG-LRU on the same rows (the matmuls before them made exact), its output
+within 1e-6 and its parameter gradients within 1e-5 of their largest value.
 """
 
 import jax
@@ -33,7 +36,8 @@ from torch_dist import run_world
 
 pytestmark = pytest.mark.dist
 
-ARCHS = ("qwen2-72b", "starcoder2-15b", "deepseek-v3-671b", "xlstm-350m")
+ARCHS = ("qwen2-72b", "starcoder2-15b", "deepseek-v3-671b", "xlstm-350m", "recurrentgemma-2b")
+RECURRENT = ("xlstm-350m", "recurrentgemma-2b")
 
 
 @pytest.fixture(scope="module")
@@ -47,6 +51,8 @@ def ref():
             "attn_q": rng.standard_normal((8, 8, 6, 16), np.float32),
             "attn_kv": rng.standard_normal((2, 8, 8, 3, 16), np.float32),
             "slstm_x": rng.standard_normal((8, 6, 32), np.float32),
+            "rglru_x": rng.integers(-2, 3, (8, 6, 64)).astype(np.float32) / 4,
+            "rglru_conv": rng.integers(-4, 5, (4, 64)).astype(np.float32) / 8,
             "logits": rng.standard_normal((8, 8, 64), np.float32) * 4,
             "labels": rng.integers(0, 64, (8, 8)).astype(np.int32)}
 
@@ -54,7 +60,8 @@ def ref():
 @pytest.fixture(scope="module")
 def ranks(ref, tmp_path_factory):
     return run_world("lm", 8, tmp_path_factory.mktemp("lm"), lm_tokens=ref["tokens"],
-                     **{k: ref[k] for k in ("attn_q", "attn_kv", "slstm_x", "logits", "labels")})
+                     **{k: ref[k] for k in ("attn_q", "attn_kv", "slstm_x", "rglru_x", "rglru_conv",
+                                             "logits", "labels")})
 
 
 def test_mesh_coordinates_are_row_major(ranks):
@@ -118,4 +125,38 @@ def test_sharded_prefill_and_decode(ranks, arch):
             assert err <= (1e-1 + 2e-2 * big if bf16 else 1e-4 * big)
         # the caches written in place keep sharding.place_state's placement (a
         # recurrent state is its recurrence's result, placed as it comes)
-        assert r[f"{arch}.cache_placed"].all() or arch == "xlstm-350m"
+        assert r[f"{arch}.cache_placed"].all() or arch in RECURRENT
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "qwen2-72b", "deepseek-v3-671b"])
+def test_sharded_prefill_state_holds_no_storage_past_its_block(ranks, arch):
+    """Each leaf of the state a sharded prefill returns lies in a storage of
+    its own block's size: no view into a sequence-long tensor."""
+    for r in ranks:
+        block, storage = r[f"{arch}.state_storage"].T
+        assert (storage == block).all(), r[f"{arch}.state_storage"]
+
+
+@pytest.mark.parametrize("tag", ["seq", "step"])
+def test_rglru_on_each_ranks_rows_is_bit_exact(ranks, tag):
+    """The conv and the scan on each rank's block equal the plain RG-LRU on
+    the same rows bit for bit (inputs and weights on dyadic grids, so the
+    matmuls before them are exact): its state (conv, h); the output after
+    the out-projection within 1e-6.  The state is a tensor of its block's
+    size."""
+    for r in ranks:
+        for k in ("conv", "h"):
+            want, got = r[f"rglru.{tag}.{k}"]
+            np.testing.assert_array_equal(got, want)
+            storage, block = r[f"rglru.{tag}.{k}.storage"]
+            assert storage == block
+        want, got = r[f"rglru.{tag}.out"]
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_rglru_parameter_gradients_sum_over_the_rows(ranks):
+    """The conv kernel and the decay, used on each rank's rows, take the
+    gradient summed over the batch shards (within 1e-5 of each leaf's
+    largest value; float32)."""
+    for r in ranks:
+        assert float(r["rglru.grad_err"]) <= 1e-5

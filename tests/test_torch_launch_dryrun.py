@@ -19,10 +19,13 @@ reference's TPU dry run (``repro.launch.dryrun``).
   step (FLOPs and collective bytes > 0, no storage as large as the global
   logits), deepseek-v3 through a prefill and xlstm through a train step and
   a prefill (each prefill's cache per rank at most the global cache over
-  the batch shards), ``paper-bayes-fusion`` at its smoke
-  size (per pixel: bytes, no collective), ``main`` refusing a started
-  process group, and the CLI's phi3-mini-3.8b ``train_4k`` cell on the
-  256-rank world (``ok: true``, the reference's keys with two renamed).
+  the batch shards), deepseek-v3 through a train step under a counter that
+  records the shapes it sees made and live at the peak (no tensor of all the
+  rank's token-expert assignments by D; no attention scores at the peak),
+  ``paper-bayes-fusion`` at its smoke size (per pixel: bytes, no
+  collective), ``main`` refusing a started process group, and the CLI's
+  phi3-mini-3.8b ``train_4k`` cell on the 256-rank world (``ok: true``, the
+  reference's keys with two renamed).
   The reference's own ``test_dryrun_mini`` fails under jax 0.9, so none of
   its expectations is taken as truth.
 
@@ -205,6 +208,39 @@ MINI = textwrap.dedent("""
     print(json.dumps(out))
 """)
 
+# deepseek-v3's train step in the same fake world, its smoke widths with a
+# 64-token vocabulary (padded to 256) and 80 tokens a row, under
+# ``launch.peak.PeakSplit``, which records the shape of every storage it
+# sees made and of those live at the peak: the step must make no tensor of
+# all its T*k token-expert assignments by D (the MoE gathers only its
+# buffer's slots), and hold no attention scores at the peak (every block,
+# the dense prefix and the MTP head too, recomputed in the backward)
+MINI_PEAK = textwrap.dedent("""
+    import dataclasses, json
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.peak import PeakSplit
+
+    cfg = dataclasses.replace(get_smoke_config("deepseek-v3-671b"), vocab_size=64)
+    seq = 80
+    with dryrun.fake_world(8):
+        mesh = make_test_mesh(shape=(2, 2, 2), axes=("pod", "data", "model"), device="cpu")
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            step, args = dryrun.build_step(cfg, ShapeConfig("mini", seq, 8, "train"), mesh,
+                                           "deepseek-v3-671b", device="cpu")
+            split = dryrun.count_step(step, args, mesh,
+                                      counter=PeakSplit(mesh, min_bytes=0, step_bytes=0))
+    rows = 8 // 4                                    # the batch over pod x data
+    assignments = ((rows * seq * cfg.moe.top_k, cfg.d_model), "bfloat16")
+    scores = ((rows, cfg.num_heads // 2, seq, seq), "float32")   # the heads over model
+    print(json.dumps({"assignments_made": split.shapes[assignments],
+                      "scores_made": split.shapes[scores],
+                      "scores_at_peak": [m[:2] for _, m in split.at_peak[1] if m].count(scores)}))
+""")
+
 CLI = ["-m", "repro_torch.launch.dryrun", "--arch", "phi3-mini-3.8b", "--shape", "train_4k",
        "--mesh", "single", "--device", "cpu", "--out"]
 # arch -> the step kinds its world counts
@@ -223,6 +259,7 @@ def mini(tmp_path_factory):
     env.pop("XLA_FLAGS", None)
     runs = {arch: [sys.executable, "-c", MINI, arch, kinds] for arch, kinds in MINI_ARCHS.items()}
     runs["cli"] = [sys.executable, *CLI, str(out_dir)]
+    runs["deepseek-peak"] = [sys.executable, "-c", MINI_PEAK]
     procs = {k: subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                  text=True) for k, cmd in runs.items()}
     got = {}
@@ -271,6 +308,19 @@ def test_mini_train_holds_no_global_logits(mini, arch):
     step is as large as the batch's float32 logits."""
     got = mini[arch]["train"]
     assert 0 < got["largest_bytes"] < mini[arch]["global_logits_bytes"]
+
+
+def test_mini_deepseek_train_holds_only_its_own_slots_and_one_blocks_scores(mini):
+    """deepseek-v3's train step: the MoE makes no (T*k, D) tensor of every
+    token-expert assignment on a rank (its buffer's slots only), and no
+    attention scores are live at the peak, which falls after the backward:
+    each block's live only while its own backward runs (under a mesh the
+    dense prefix and the MTP head are recomputed too; else they hold theirs
+    through the whole step, one at this peak)."""
+    got = mini["deepseek-peak"]
+    assert got["scores_made"] > 0
+    assert got["assignments_made"] == 0
+    assert got["scores_at_peak"] == 0
 
 
 def test_mini_dry_run_of_the_fusion_workload(mini):

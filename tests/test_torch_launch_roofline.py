@@ -288,3 +288,27 @@ def test_calibrate_equals_the_full_depth_count(arch):
             "optimizer_bytes")
     assert {k: cal[k] for k in keys} == {k: full[k] for k in keys}
     assert full["flops"] > 0 and full["peak_bytes"] > full["params_bytes"] > 0
+
+
+def test_peak_split_names_the_storages_live_at_the_peak():
+    """``launch.peak.PeakSplit`` on plain CPU tensors: the peak is the
+    counter's, and the storages live at it are named by shape, dtype and the
+    op that made them; a storage freed before the peak is not among them."""
+    import torch
+
+    from repro_torch.launch.peak import PeakSplit
+
+    split = PeakSplit(min_bytes=1024, step_bytes=0)
+    with split:
+        a = torch.ones(1000)                       # 4000 bytes
+        b = torch.cat([a, a])                      # 8000 bytes
+        del b
+        c = a * 2
+        d = torch.stack([a, c, a])                 # the peak: a, c, d
+    live = {m[:3] for _, m in split.at_peak[1] if m is not None}
+    assert split.peak_bytes == split.at_peak[0] == 4000 * 5
+    assert live == {((1000,), "float32", "aten.ones.default"),
+                    ((1000,), "float32", "aten.mul.Tensor"),
+                    ((3, 1000), "float32", "aten.stack.default")}
+    assert "aten.stack.default" in split.report()
+    del d

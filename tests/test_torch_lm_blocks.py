@@ -177,7 +177,8 @@ def test_moe_combine_adds_in_the_references_order(k):
     g = r.standard_normal((t * k, d)).astype(np.float32) * np.exp(r.normal(0, 3, (t * k, 1)))
     gb = jnp.asarray(g).astype(jnp.bfloat16)
     want = jax.jit(lambda g, s: jnp.zeros((t, d), jnp.bfloat16).at[s].add(g))(gb, jnp.asarray(stok))
-    got = moe._combine(torch.from_numpy(g).bfloat16(), torch.from_numpy(order), t, k)
+    gathered = torch.from_numpy(g).bfloat16()
+    got = moe._combine(lambda j: gathered[j], torch.from_numpy(order), t, k)
     np.testing.assert_array_equal(got.view(torch.int16).numpy(),
                                   np.asarray(want).view(np.int16))
 

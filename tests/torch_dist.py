@@ -335,18 +335,20 @@ def models(rank, n, moe_x, lm_tokens, grad, **flat):
     return out
 
 
-def lm(rank, n, lm_tokens, attn_q, attn_kv, slstm_x, logits, labels):
+def lm(rank, n, lm_tokens, attn_q, attn_kv, slstm_x, rglru_x, rglru_conv, logits, labels):
     """On a (2, 2, 2) ("pod", "data", "model") world, whose batch is split
     over two axes: ``context.vocab_nll`` and its gradient beside
     ``log_softmax`` on the same logits; ``multihead_attention`` with the
     heads split over `model` (KV heads that divide it and KV heads that do
-    not) beside the unsharded call; the sLSTM on each rank's rows, in a
-    sequence and in a decode step, beside the unsharded one; the smoke
+    not) beside the unsharded call; the sLSTM and the RG-LRU on each rank's
+    rows, in a sequence and in a decode step, beside the unsharded ones (and
+    the RG-LRU's parameter gradients, and the storage of its state); the smoke
     qwen2's loss and gradients (float32 weights) sharded and unsharded, and
     the largest storage the sharded step holds; prefill and a decode step,
     sharded and unsharded, of the smoke qwen2, starcoder2 (one KV head),
-    deepseek-v3 (no MoE) and xlstm (float32 weights), with the caches'
-    placements beside ``sharding.place_state``'s."""
+    deepseek-v3 (no MoE), xlstm and recurrentgemma (float32 weights), with
+    the caches' placements beside ``sharding.place_state``'s and the largest
+    storage under each state leaf beside the leaf's block."""
     import dataclasses
 
     from torch.distributed.tensor import DTensor, Replicate
@@ -417,6 +419,51 @@ def lm(rank, n, lm_tokens, attn_q, attn_kv, slstm_x, logits, labels):
         out[f"slstm.{tag}.sharded"] = np.stack([_np(b[0])[:, -1]]
                                                + [_np(b[1][k]) for k in "cnmh"])
 
+    # --- the RG-LRU on each rank's rows (float32 weights) ------------------------
+    from repro_torch.models import rglru
+
+    # inputs, conv taps and dense weights on coarse dyadic grids, so that
+    # every matmul before the scan is exact in float32 whatever its order or
+    # shape: the scan on a rank's rows gets the plain scan's inputs bit for bit
+    cfg = get_smoke_config("recurrentgemma-2b")
+    rp = {k: torch.round(v.float() * 16) / 16 if v.dim() == 2 else v
+          for k, v in rglru.rglru_init(prng.PRNGKey(4), cfg, device="cpu").items()}
+    rp["conv"] = torch.from_numpy(rglru_conv)
+    xs = torch.from_numpy(rglru_x)
+    part = xs.shape[0] // 4
+    with torch.no_grad():
+        runs = [rglru.rglru_apply(rp, xs[i:i + part], cfg) for i in range(0, xs.shape[0], part)]
+        steps = [rglru.rglru_apply(rp, xs[i:i + part, :1], cfg, st)
+                 for i, (_, st) in zip(range(0, xs.shape[0], part), runs)]
+    rd = {k: sharding.shard(v, mesh, sharding.placements(sharding.spec_for_leaf((k,), v.shape,
+                                                                                mesh), mesh))
+          for k, v in rp.items()}
+    with torch.no_grad(), dctx.mesh_context(mesh):
+        xd = placed(xs, (("pod", "data"), None, None))
+        yd, sd = rglru.rglru_apply(rd, xd, cfg)
+        y1d, sd1 = rglru.rglru_apply(rd, xd[:, :1], cfg, sd)
+    for tag, rr, (yy, ss) in (("seq", runs, (yd, sd)), ("step", steps, (y1d, sd1))):
+        out[f"rglru.{tag}.out"] = np.stack([_np(torch.cat([o for o, _ in rr])), _np(yy)])
+        for k in ("conv", "h"):
+            out[f"rglru.{tag}.{k}"] = np.stack([_np(torch.cat([st[k] for _, st in rr])),
+                                                _np(ss[k])])
+            local = ss[k].to_local()
+            out[f"rglru.{tag}.{k}.storage"] = np.array(
+                [local.untyped_storage().nbytes(), local.numel() * local.element_size()])
+    # its gradients: the parameters used on each rank's rows summed over them
+    wgt = torch.from_numpy(rglru_x[::-1].copy())
+    plain = {k: v.clone().requires_grad_(True) for k, v in rp.items()}
+    y, _ = rglru.rglru_apply(plain, xs, cfg)
+    grads_p = torch.autograd.grad((y * wgt).sum(), list(plain.values()))
+    leaves = {k: v.detach().requires_grad_(True) for k, v in rd.items()}
+    with dctx.mesh_context(mesh):
+        y, _ = rglru.rglru_apply(leaves, placed(xs, (("pod", "data"), None, None)), cfg)
+        grads_s = torch.autograd.grad((y * placed(wgt, (("pod", "data"), None, None))).sum(),
+                                      list(leaves.values()))
+    out["rglru.grad_err"] = np.array(max(
+        float((s_.full_tensor() - g).abs().max() / g.abs().max())
+        for g, s_ in zip(grads_p, grads_s)))
+
     # --- the sharded loss and its gradients (float32 weights) ------------------
     def float32(model):
         for mod in model.modules():
@@ -451,7 +498,8 @@ def lm(rank, n, lm_tokens, attn_q, attn_kv, slstm_x, logits, labels):
                                            for r in counter.records))
 
     # --- prefill and decode, sharded and unsharded -----------------------------
-    for arch in ("qwen2-72b", "starcoder2-15b", "deepseek-v3-671b", "xlstm-350m"):
+    for arch in ("qwen2-72b", "starcoder2-15b", "deepseek-v3-671b", "xlstm-350m",
+                 "recurrentgemma-2b"):
         cfg = get_smoke_config(arch)
         if arch == "starcoder2-15b":
             # one KV head, which `model` does not divide: its cache splits the sequence
@@ -462,10 +510,9 @@ def lm(rank, n, lm_tokens, attn_q, attn_kv, slstm_x, logits, labels):
             # keeps its capacity per batch shard (test_torch_dist_models holds it)
             cfg = dataclasses.replace(cfg, moe=None)
         params = api.init(cfg, prng.PRNGKey(1), device="cpu")
-        if arch == "xlstm-350m":
+        if arch in ("xlstm-350m", "recurrentgemma-2b"):
             # float32 weights: the recurrences amplify the sharded matmuls'
-            # bf16 roundings (the plain path's decode takes float32 weights
-            # for this arch only: its states are float32)
+            # bf16 roundings
             params = float32(params)
         with torch.no_grad():
             logits_p, state_p = api.prefill(params, cfg, {"tokens": toks}, 16)
@@ -488,6 +535,10 @@ def lm(rank, n, lm_tokens, attn_q, attn_kv, slstm_x, logits, labels):
         out[f"{arch}.cache_err"] = np.array([
             [np.abs(_np(a) - _np(b)).max(), np.abs(_np(a)).max(), a.dtype == torch.bfloat16]
             for a, b in zip(flat_p, flat_s)], dtype=np.float64)
+        # per leaf: its block's bytes, and the bytes of the storage under it
+        out[f"{arch}.state_storage"] = np.array([
+            [a.to_local().numel() * a.element_size(), a.to_local().untyped_storage().nbytes()]
+            for a in flat_s], dtype=np.int64)
         out[f"{arch}.cache_placed"] = np.array([
             isinstance(a, DTensor) and tuple(a.placements) == tuple(b.placements)
             and a.to_local().shape == b.to_local().shape for a, b in zip(flat_s, flat_w)])
