@@ -9,7 +9,9 @@ Phases (any failure makes the script exit non-zero without the result line):
 2. build   -- ``nvcc`` builds, all started together, every kernel library of
               the paths from ``src/`` -- the operator and node_mux sources and
               one generated ``net_sweep`` program per plan the run launches
-              (``kernels/net_sweep/codegen.py``) -- and prints ``-Xptxas -v``
+              (``kernels/net_sweep/codegen.py``; the reliability and drift
+              phases build their own plans' programs as they start) -- and
+              prints ``-Xptxas -v``
               (registers, spills), the nvcc seconds of each program and its
               integer instructions in ``cuobjdump -sass`` (for the two SNE
               kernels also per copy of the hash, beside the counted least).
@@ -66,7 +68,38 @@ Phases (any failure makes the script exit non-zero without the result line):
               a forced recalibration of a noisy tenant (card equal to CPU, one
               swap, the swap's wall time and its twin's nvcc seconds); and
               ``calibration_report`` on the card equal to the CPU.
-9. paper_layer -- the paper-figure layer (``core/*``) and the four examples
+9. reliability -- bench_reliability's flows (``benchmarks/bench_reliability.py``,
+              its sizes copied here), each run on the CPU, then its plans'
+              ``net_sweep`` programs built (one nvcc each, all started
+              together; the count and nvcc seconds printed), then run on the
+              card with launch counts reset just before and read just after
+              and no program built in between, and held equal to the CPU run:
+              posteriors, accepted counts, decisions, flip rates,
+              ``ReliabilityStats`` (but the host-clocked ``slow_launches``)
+              and every frame's retry report.  The 7 scenarios' flip rate
+              against the clean DAC-quantised oracle over 512 frames at noise
+              scales 0, 0.5, 1 and 2 x nominal (1024 bits) and at 256, 1024 and
+              4096 bits (nominal), the last at most 0.15; the retry race on
+              obstacle-detection, lane-change and intersection-cat (256 bits,
+              ``RetryPolicy(0.9, 2 retries, 4x, 16384)`` against a flat driver
+              at the retry's mean bits rounded up to 32, both against the
+              perturbed oracle) in sync and async drains: retry no worse than
+              flat at a bit overhead of at most 8x.
+10. drift  -- bench_drift's flows, run and held as ``reliability``'s, with the
+              drift monitor's per-launch snapshots held too: the aging race of
+              the 7 scenarios (``NoiseModel(seed=4, wear_tau=4)``, 1024 bits,
+              128 frames, 7 launches 2 cycles apart, the open arm on the aged
+              plan, the closed arm refit by ``compensated_program`` every other
+              launch, the final cycle averaged over 8 launches): closed at most
+              0.008 worse than open in each, strictly better in at least 5;
+              the hot swap (pedestrian-night, 16 frames, max_batch 4): two
+              launches per driver queued behind ``torch.cuda._sleep``, their
+              events incomplete when ``swap_net`` switches to
+              ``recalibrated_network(net, cycle=8)`` (built beforehand), no
+              frame lost and the 8 pre-swap frames equal to a never-swapped
+              twin's; and ``tests/test_torch_drift.py``'s three drift-monitor
+              cases (256 bits, max_batch 4, 40 frames) in sync and async.
+11. paper_layer -- the paper-figure layer (``core/*``) and the four examples
               (``repro_torch.examples``) at the reference benchmarks' own
               sizes, each flow on the CPU and then on the card, held by
               ``PAPER_RULES`` (streams, counts and ratios exact; the float
@@ -86,7 +119,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               and obstacle_fusion at their scripts' sizes.  Per flow: seconds
               on the card and launches per kernel; then the throughput model
               beside the batched operator's measured rate.
-10. lm_serve -- the LM serving path (configs, the attention-only decoder, the
+12. lm_serve -- the LM serving path (configs, the attention-only decoder, the
               ``ServeEngine`` with the Bayes gate).  phi3-mini-3.8b at its
               published config, every layer, random weights from
               ``PRNGKey(0)`` made on the card: init seconds and peak memory;
@@ -106,7 +139,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               decode, gate), ``repro_torch.launch.serve`` for phi3 with the
               stochastic gate, and ``examples.serve_lm.run`` card against CPU
               (tokens held while the fused top-2 gap clears 1e-2).
-11. lm_blocks -- the other block kinds (MoE, MLA, RG-LRU, xLSTM, enc-dec, the
+13. lm_blocks -- the other block kinds (MoE, MLA, RG-LRU, xLSTM, enc-dec, the
               MTP head).  recurrentgemma-2b and xlstm-350m at their published
               configs, every layer, served as lm_serve serves phi3 (init s and
               peak memory, decode after prefill against the teacher-forced
@@ -127,7 +160,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               full width cut to 5 layers, xlstm-350m whole, seamless cut to 2 +
               2 layers, and the five archs' smoke configs, routing first.
               Each model is freed before the next.
-12. lm_train -- the training stack (AdamW, the data pipeline, checkpoints,
+14. lm_train -- the training stack (AdamW, the data pipeline, checkpoints,
               ``TrainLoop``, the train launcher and example).  phi3-mini-3.8b at
               its published config, every layer, random weights from
               ``PRNGKey(0)`` made on the card, trained 6 steps through
@@ -158,7 +191,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               ``examples.train_lm.run`` card against CPU (every step's loss),
               and the example on the card at its script's 60 steps, whose loss
               must fall.
-13. multi_device -- the multi-device half on ``torch.distributed``: a world
+15. multi_device -- the multi-device half on ``torch.distributed``: a world
               of 2 ranks sharing the one card over gloo (``cpu:gloo,cuda:gloo``;
               NCCL takes no two ranks on one GPU), spawned with a timeout, a
               failing rank failing the phase.  The 7 scenarios at B=1024,
@@ -179,7 +212,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               DTensor's Shard -> Replicate uses on CUDA tensors.  Seconds and
               peak GB per rank per step.  Two ranks on one card measure the
               logic and gloo's host copies, not NVLink.
-14. dryrun -- the H100-cluster dry run (``repro_torch.launch.dryrun``), its
+16. dryrun -- the H100-cluster dry run (``repro_torch.launch.dryrun``), its
               processes under a timeout: (a) phi3-mini-3.8b x ``train_4k`` on
               both production meshes (``h100x32x8``, ``h100x2x16x8``),
               llama4-scout x ``decode_32k``, deepseek-v3 x ``prefill_32k``
@@ -203,7 +236,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               that batch on one GPU, counted fake: the memory terms of the
               forward+backward and of the optimizer beside lm_train's measured
               times.
-15. operators -- the paper's fusion operators.  Each of ``sne_encode``,
+17. operators -- the paper's fusion operators.  Each of ``sne_encode``,
               ``pand_popcount``, ``bayes_decide`` and ``fusion_map`` against
               its plain torch version on the card (bit for bit; fusion_map
               within atol 2e-6, rtol 1e-5) at M 1..3, K 1, 2, 8, 16 and 33,
@@ -225,7 +258,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               decision (4096 decisions, M=K=2, 128 bits: fused, composed,
               ``bayes_decide_packed``); and the ``obstacle_fusion`` example
               flow at 64x64 (``examples.obstacle_fusion.run``).
-16. operator_timing -- device time per launch (``torch.profiler``, the L2
+18. operator_timing -- device time per launch (``torch.profiler``, the L2
               flushed before each launch) and per back-to-back call (CUDA
               events) of the four kernels at the full batch and at a
               65,536-pixel slice of it, beside their plain
@@ -242,7 +275,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               bound counts the shared body's least integer work per entropy
               word, logic on the 64 ALU lanes of an SM and multiplies and
               adds free to use all 128, as ``net_sweep``'s.
-17. unfused_kernels -- the ``node_mux`` kernels against their plain versions
+19. unfused_kernels -- the ``node_mux`` kernels against their plain versions
               on the card, bit for bit: gather and rows at 0 to 6 parents
               (per-row tables and shared rows holding thresholds 0, 128, 256
               and the half steps) and at 7 and 8 (the gather on the
@@ -251,7 +284,7 @@ Phases (any failure makes the script exit non-zero without the result line):
               (per-row and shared tables; 6 binary parents at k = 2) and
               its wide path at 9 planes and at 17 parents, k-ary roots, and
               counter origins that wrap 2**32.
-18. unfused_path -- the unfused lowering through its entry points at
+20. unfused_path -- the unfused lowering through its entry points at
               n_bits=4096, B=1024, counts reset just before and read just
               after: 7 scenarios x {``fused=False``, ``share_entropy=True``},
               ``mux_mode='rows'`` on the 4 binary scenarios and
@@ -262,12 +295,12 @@ Phases (any failure makes the script exit non-zero without the result line):
               Then the unfused, shared-entropy and fused posteriors against the
               enumeration oracle: per distinct evidence vector, the posterior
               pooled over its frames within 4.5 sqrt(p (1-p) / accepted).
-19. wide_path -- the wide network through ``compile_network`` fused,
+21. wide_path -- the wide network through ``compile_network`` fused,
               ``fused=False``, ``share_entropy=True`` and ``mux_mode='rows'`` at
               n_bits=4096, B=1024, each ``decide`` bit-equal to
               ``device="cpu"``; counts reset just before and read just after,
               and each wide kernel must have launched.
-20. unfused_timing -- device time per launch and per back-to-back call of the
+22. unfused_timing -- device time per launch and per back-to-back call of the
               node_mux kernels at B=1024 and B=65,536 (n_bits=4096; the wide
               paths at B=256) beside their plain versions and bounds; launches
               of each kernel per unfused ``run`` of each scenario; wall time per
@@ -318,8 +351,10 @@ from repro_torch.bayesnet import (  # noqa: E402
     SCENARIOS,
     FrameDriver,
     NoiseModel,
+    RetryPolicy,
     by_name,
     compile_network,
+    flip_rate,
     posterior_argmax,
     sweep_plan,
 )
@@ -867,6 +902,269 @@ def _busy_us(prof):
             busy += b - max(a, end)
             end = b
     return busy, len(spans)
+
+
+# --- the reliable decision path (phases reliability and drift): the reference
+# flows benchmarks/bench_reliability.py and benchmarks/bench_drift.py at their
+# own sizes, copied here because benchmarks imports jax.  Each flow runs on one
+# device and returns a dict that must be equal card against CPU, bit for bit,
+# apart from its "meta" entry: the oracle's float posteriors (summed in another
+# order on each device), host times, and the plans the flow compiled.
+REL_FRAMES = 512                       # evidence frames per scenario, from PRNGKey(1)
+REL_SCALES = (0.0, 0.5, 1.0, 2.0)      # x NoiseModel.nominal(); scale 0 is noise=None
+REL_SCALE_BITS = 1024
+REL_NBITS = (256, 1024, 4096)          # under nominal noise
+REL_RETRY_NAMES = ("obstacle-detection", "lane-change", "intersection-cat")
+REL_RETRY_BITS = 256
+REL_RETRY = dict(min_confidence=0.9, max_retries=2, escalation=4, max_n_bits=1 << 14)
+MAX_NOMINAL_FLIP = 0.15                # benchmarks/check_bench.py's limits
+MAX_RETRY_OVERHEAD = 8.0
+DRIFT_NOISE = dict(seed=4, wear_tau=4.0)
+DRIFT_BITS, DRIFT_BATCH, DRIFT_LAUNCHES = 1024, 128, 7
+DRIFT_CYCLE_STEP = 2                   # cycles of wear per launch
+DRIFT_RECAL_EVERY = 2                  # the closed arm refits its program every other launch
+DRIFT_EPOCHS = 2                       # each launch's stream spans two noise snapshots
+DRIFT_FINAL_REPEATS = 8                # the final cycle's flip averages this many launches
+DRIFT_SALT = 17
+DRIFT_FLIP_TOL, DRIFT_MIN_WINS = 0.008, 5
+SWAP_NAME, SWAP_FRAMES, SWAP_BATCH, SWAP_SALT = "pedestrian-night", 16, 4, 99
+SWAP_NOISE = dict(seed=4, cycle=4, wear_tau=4.0)
+SWAP_CYCLE = 8                         # the recalibrated twin's cycle
+SWAP_DELAY_CYCLES = 1 << 30            # device clocks queued ahead of the swap's launches
+MONITOR_CASES = (("pedestrian-night", True), ("intersection-cat", False),
+                 ("sensor-degradation", True))       # tests/test_torch_drift.py's cases
+MONITOR_NOISE = dict(seed=9, cycle=3, wear_tau=1.0)
+MONITOR_POLICY = dict(warmup=4, drift_h=0.5, recal_h=2.0)
+MONITOR_BITS, MONITOR_BATCH, MONITOR_FRAMES, MONITOR_SALT = 256, 4, 40, 41
+MONITOR_KEY = prng.PRNGKey(5)
+
+
+def _host(t):
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _drained(drv, ev, mode="sync"):
+    """Submit ``ev``, drain in ``mode``: (rids, {rid: (post, accepted)}), every rid once."""
+    rids = drv.submit(ev)
+    out = drv.drain_async() if mode == "async" else drv.drain()
+    if sorted(out) != rids:
+        raise AssertionError(f"a drain lost {len(set(rids) - set(out))} frames")
+    return rids, out
+
+
+def _stats(stats):
+    """A driver's ReliabilityStats without ``slow_launches``, which the host clock sets."""
+    return {k: v for k, v in dataclasses.asdict(stats).items() if k != "slow_launches"}
+
+
+def flip_curves(name, device, frames=REL_FRAMES, scales=REL_SCALES,
+                scale_bits=REL_SCALE_BITS, n_bits=REL_NBITS):
+    """One scenario of bench_reliability's sweep: the MAP flip rate against the
+    clean DAC-quantised oracle as the noise scales (at ``scale_bits``) and as
+    the stream grows (nominal noise); one ``decide`` of all frames each."""
+    spec = by_name(name)
+    ev = analytic.sample_evidence(spec, prng.PRNGKey(1), frames, device=device)
+    exact, _ = analytic.make_posterior_fn(spec, dac_quantize=True, device=device)(ev)
+    ref = _host(posterior_argmax(exact))
+    nominal, key, plans = NoiseModel.nominal(), prng.PRNGKey(0), []
+
+    def decide(nb, noise):
+        net = compile_network(spec, n_bits=nb, noise=noise, device=device)
+        plans.append(net.plan)
+        post, dec, acc = (_host(t) for t in net.decide(key, ev))
+        return {"post": post, "dec": dec, "accepted": acc, "flip": flip_rate(dec, ref)}
+
+    by_scale = {s: decide(scale_bits, None if s == 0 else nominal.scaled(s)) for s in scales}
+    by_bits = {nb: by_scale[1.0] if nb == scale_bits and 1.0 in by_scale else decide(nb, nominal)
+               for nb in n_bits}
+    return {"ref": ref, "scale": by_scale, "n_bits": by_bits,
+            "meta": {"oracle": _host(exact), "plans": plans}}
+
+
+def retry_race(name, device, mode="sync", frames=REL_FRAMES):
+    """bench_reliability's retry race on one scenario: a confidence-gated
+    retrying driver against a flat one given at least its mean bits per frame,
+    both scored against the perturbed oracle's decisions."""
+    spec = by_name(name)
+    nominal = NoiseModel.nominal()
+    ev = _host(analytic.sample_evidence(spec, prng.PRNGKey(1), frames, device=device))
+    exact, _ = analytic.make_posterior_fn(spec, noise=nominal, device=device)(ev)
+    ref = _host(posterior_argmax(exact))
+    plans, seconds = [], {}
+
+    def serve(arm, n_bits, retry):
+        net = compile_network(spec, n_bits=n_bits, noise=nominal, device=device)
+        plans.append(net.plan)
+        drv = FrameDriver(net, max_batch=frames, salt=0, retry=retry)
+        t0 = time.perf_counter()
+        rids, out = _drained(drv, ev, mode)
+        seconds[arm] = time.perf_counter() - t0
+        post = np.stack([out[r][0] for r in rids])
+        dec = _host(posterior_argmax(post))
+        return drv, {"post": post, "accepted": np.asarray([out[r][1] for r in rids]),
+                     "dec": dec, "flip": flip_rate(dec, ref)}
+
+    drv, retried = serve("retry", REL_RETRY_BITS, RetryPolicy(**REL_RETRY))
+    flat_bits = int(-(-drv.stats.mean_bits // 32) * 32)     # the word grid, rounded up
+    _, flat = serve("flat", flat_bits, None)
+    return {"ref": ref, "retry": retried, "flat": flat, "flat_bits": flat_bits,
+            "stats": _stats(drv.stats), "overhead": drv.stats.mean_bits / REL_RETRY_BITS,
+            "reports": {rid: dataclasses.asdict(r) for rid, r in sorted(drv.reports.items())},
+            "meta": {"oracle": _host(exact), "plans": plans, "seconds": seconds}}
+
+
+def aging_race(name, device, n_bits=DRIFT_BITS, batch=DRIFT_BATCH, launches=DRIFT_LAUNCHES,
+               final_repeats=DRIFT_FINAL_REPEATS):
+    """bench_drift's race on one scenario: the array ages DRIFT_CYCLE_STEP
+    cycles per launch under two drivers; the open arm swaps to the aged plan,
+    the closed arm to the aged plan with its program refit by
+    ``compensated_program`` every DRIFT_RECAL_EVERY launches.  Flip rates
+    against the clean DAC-quantised oracle, the final cycle's averaged over
+    ``final_repeats`` launches."""
+    spec = by_name(name)
+    nm = NoiseModel(**DRIFT_NOISE)
+    ev = _host(analytic.sample_evidence(spec, prng.PRNGKey(3), batch, device=device))
+    exact, _ = analytic.make_posterior_fn(spec, dac_quantize=True, device=device)(ev)
+    ref = _host(posterior_argmax(exact))
+    plans, swap_s, closed_s = [], [], []
+
+    def plan(cycle, program_cycle=None):
+        prog = None if program_cycle is None else tbn.compensated_program(
+            spec, nm.with_cycle(program_cycle), drift_epochs=DRIFT_EPOCHS)
+        net = compile_network(spec, n_bits, noise=nm.with_cycle(cycle), drift_epochs=DRIFT_EPOCHS,
+                              program=prog, devices=1, device=device)
+        plans.append(net.plan)
+        return net
+
+    drv_open = FrameDriver(plan(0), max_batch=batch, salt=DRIFT_SALT)
+    drv_closed = FrameDriver(plan(0, 0), max_batch=batch, salt=DRIFT_SALT)
+    recals, prog_cycle, rows, posts = 1, 0, [], []
+    for i in range(launches):
+        cycle = i * DRIFT_CYCLE_STEP
+        if i > 0:
+            aged = plan(cycle)
+            if i % DRIFT_RECAL_EVERY == 0:
+                prog_cycle = cycle
+                recals += 1
+            refit = plan(cycle, prog_cycle)
+            t0 = time.perf_counter()
+            drv_open.swap_net(aged)
+            drv_closed.swap_net(refit)
+            swap_s.append(time.perf_counter() - t0)
+        reps = final_repeats if i == launches - 1 else 1
+        flip_open = flip_closed = 0.0
+        for _ in range(reps):
+            rids, out = _drained(drv_open, ev)
+            po = np.stack([out[r][0] for r in rids])
+            t0 = time.perf_counter()
+            rids, out = _drained(drv_closed, ev)
+            closed_s.append(time.perf_counter() - t0)
+            pc = np.stack([out[r][0] for r in rids])
+            flip_open += flip_rate(_host(posterior_argmax(po)), ref)
+            flip_closed += flip_rate(_host(posterior_argmax(pc)), ref)
+            posts.append((po, pc))
+        flip_open /= reps
+        flip_closed /= reps
+        rows.append((i, cycle, flip_open, flip_closed, recals))
+    return {"ref": ref, "rows": rows, "posts": posts, "flip_open": flip_open,
+            "flip_closed": flip_closed, "recals": recals,
+            "meta": {"oracle": _host(exact), "plans": plans, "swap_s": swap_s,
+                     "closed_s": closed_s}}
+
+
+def hot_swap(device, delay_cycles=0):
+    """bench_drift's hot swap: a driver swaps to a recalibrated twin with two
+    launches (8 frames) dispatched and not harvested, beside a never-swapped
+    twin driver.  On the card ``delay_cycles`` of device work queued ahead of
+    the four launches keep them pending until the swap has returned; each
+    launch's recorded event is queried just before and just after it.  The
+    twin network is built before the launches, so the timed swap is the swap
+    alone (``recal_s`` is its own time)."""
+    spec = by_name(SWAP_NAME)
+    net = compile_network(spec, DRIFT_BITS, noise=NoiseModel(**SWAP_NOISE),
+                          drift_epochs=DRIFT_EPOCHS, devices=1, device=device)
+    ev = _host(analytic.sample_evidence(spec, prng.PRNGKey(5), SWAP_FRAMES, device=device))
+    t0 = time.perf_counter()
+    recal = tbn.recalibrated_network(net, cycle=SWAP_CYCLE)
+    recal_s = time.perf_counter() - t0
+    twin = FrameDriver(net, max_batch=SWAP_BATCH, salt=SWAP_SALT)
+    swapped = FrameDriver(net, max_batch=SWAP_BATCH, salt=SWAP_SALT)
+    t_rids, s_rids = twin.submit(ev), swapped.submit(ev)
+    if delay_cycles:
+        # four launches of the drivers' shape, so that their pinned uploads and
+        # outputs find cached blocks: no allocation may wait on the delay below
+        for _ in range(4):
+            net.run(prng.PRNGKey(0), ev[:SWAP_BATCH])
+        torch.cuda.synchronize()
+        torch.cuda._sleep(delay_cycles)
+    for drv in (twin, swapped):
+        drv.step(block=False)
+        drv.step(block=False)                    # two launches (8 frames) in flight
+    # the driver's own launch records: a pending launch's event has not completed
+    pending = [lf.done is not None and not lf.done.query() for lf in swapped._inflight]
+    t0 = time.perf_counter()
+    swapped.swap_net(recal)
+    swap_s = time.perf_counter() - t0
+    pending_after = [lf.done is not None and not lf.done.query() for lf in swapped._inflight]
+    out_twin, out_swapped = twin.drain(), swapped.drain()
+    lost = len(set(s_rids) - set(out_swapped))
+    pre = 2 * SWAP_BATCH                         # frames dispatched before the swap
+    preserved = lost == 0 and swapped.net is recal and all(
+        np.array_equal(out_twin[t][0], out_swapped[s][0]) and out_twin[t][1] == out_swapped[s][1]
+        for t, s in zip(t_rids[:pre], s_rids[:pre]))
+    return {"twin": out_twin, "swapped": out_swapped, "lost": lost, "preserved": preserved,
+            "meta": {"plans": [net.plan, recal.plan], "pending_at_swap": pending,
+                     "pending_after_swap": pending_after, "swap_s": swap_s, "recal_s": recal_s}}
+
+
+class _RecordingMonitor(tbn.DriftMonitor):
+    """A drift monitor that keeps, per launch, what it was fed and its snapshot."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.trajectory = []
+
+    def observe_launch(self, confidence, accept_rate, flip=None):
+        state = super().observe_launch(confidence, accept_rate, flip)
+        self.trajectory.append((confidence, accept_rate, state, self.as_dict()))
+        return state
+
+
+def monitor_run(name, noisy, mode, device):
+    """tests/test_torch_drift.py's drift feed: a FrameDriver with a DriftMonitor
+    (low limits, so the states move) drains seeded frames; the monitor's
+    per-launch (confidence, accept_rate, state, as_dict())."""
+    spec = by_name(name)
+    net = compile_network(spec, MONITOR_BITS, noise=NoiseModel(**MONITOR_NOISE) if noisy else None,
+                          device=device)
+    mon = _RecordingMonitor(tbn.DriftPolicy(**MONITOR_POLICY))
+    drv = FrameDriver(net, max_batch=MONITOR_BATCH, base_key=MONITOR_KEY, salt=MONITOR_SALT,
+                      drift=mon)
+    _, out = _drained(drv, _evidence(spec, MONITOR_FRAMES, seed=7), mode)
+    return {"out": out, "trajectory": mon.trajectory, "launches": drv.launches,
+            "meta": {"plans": [net.plan]}}
+
+
+def held_equal(got, want, path="flow"):
+    """Raise where ``got`` differs from ``want``: dicts, sequences, arrays and
+    scalars compared exactly, value for value; "meta" entries are skipped."""
+    if isinstance(want, dict):
+        keys = set(want) - {"meta"}
+        if set(got) - {"meta"} != keys:
+            raise AssertionError(f"{path}: keys {sorted(map(str, got))} != {sorted(map(str, want))}")
+        for k in keys:
+            held_equal(got[k], want[k], f"{path}/{k}")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{path}: {len(got)} entries != {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            held_equal(g, w, f"{path}[{i}]")
+    elif isinstance(want, np.ndarray) or isinstance(got, np.ndarray):
+        g, w = np.asarray(got), np.asarray(want)
+        if g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError(f"{path}: arrays differ")
+    elif got != want:
+        raise AssertionError(f"{path}: {got!r} != {want!r}")
 
 
 # --- the paper layer (core/*, examples/*) at the reference benchmarks' own sizes
@@ -2688,6 +2986,177 @@ class Smoke:
                  + ", ".join(f"{f} {v['mean']:.4f}" for f, v in rep["fields"].items()))
         self.report["router"]["calibration_report"] = {"ms": ms, "report": rep}
 
+    # ------------------------------------------------- the reliable decision path
+    def _run_flows(self, phase, flows):
+        """Each flow on the CPU; then one nvcc per net_sweep program that the
+        CPU runs' plans need, all started together; then each flow on the card,
+        launch counts reset just before and read just after, no program built
+        in between, and each card result held against its CPU twin.  Returns
+        ({label: card result}, {label: report row}, net_sweep launches)."""
+        cpu, rows = {}, {}
+        for label, fn in flows.items():
+            t0 = time.perf_counter()
+            cpu[label] = fn("cpu")
+            rows[label] = {"cpu_s": time.perf_counter() - t0}
+        plans = {p for r in cpu.values() for p in r["meta"]["plans"]}
+        programs = {net_sweep_kernel.program_key(p) for p in plans}
+        before = set(net_sweep_kernel.BUILDS)
+        t0 = time.perf_counter()
+        net_sweep_kernel.prepare(sorted(plans, key=repr))
+        wall = time.perf_counter() - t0
+        nvcc = [net_sweep_kernel.BUILDS[k]["seconds"]
+                for k in sorted(set(net_sweep_kernel.BUILDS) - before)]
+        span = f"{min(nvcc):.2f}-{max(nvcc):.2f} s, {sum(nvcc):.1f} s in all" if nvcc else "none"
+        self.say(f"{phase}: {len(plans)} plans, {len(programs)} net_sweep programs, {len(nvcc)} "
+                 f"built here (the rest by earlier phases) in {wall:.1f} s, one nvcc each, all "
+                 f"started together; nvcc per program {span}")
+        builds = net_sweep_kernel.net_sweep_cuda.builds
+        card = {}
+        torch.cuda.synchronize()
+        _reset_launches()                                      # the phase's path starts
+        for label, fn in flows.items():
+            n0 = net_sweep_kernel.net_sweep_cuda.launches
+            t0 = time.perf_counter()
+            card[label] = fn("cuda")
+            torch.cuda.synchronize()
+            rows[label].update(card_s=time.perf_counter() - t0,
+                               launches=net_sweep_kernel.net_sweep_cuda.launches - n0)
+        counts = _launches()                                   # the phase's path ends
+        if net_sweep_kernel.net_sweep_cuda.builds != builds:
+            raise AssertionError(f"{phase}: {net_sweep_kernel.net_sweep_cuda.builds - builds} "
+                                 f"net_sweep programs built during the card's flows")
+        if counts["net_sweep"] <= 0:
+            raise AssertionError(f"{phase}: the flows launched the net_sweep kernel 0 times")
+        others = {k: v for k, v in counts.items() if k != "net_sweep" and v}
+        if others:
+            raise AssertionError(f"{phase}: the flows launched other kernels: {others}")
+        oracle_err = 0.0
+        for label in flows:
+            held_equal(card[label], cpu[label], f"{phase} {label}, card against CPU")
+            if "oracle" in cpu[label]["meta"]:
+                oracle_err = max(oracle_err, float(np.abs(
+                    card[label]["meta"]["oracle"] - cpu[label]["meta"]["oracle"]).max()))
+        if oracle_err > ORACLE_ATOL:
+            raise AssertionError(f"{phase}: the oracle's posteriors differ card against CPU "
+                                 f"by {oracle_err} > {ORACLE_ATOL}")
+        self.report[phase] = {"plans": len(plans), "programs": len(programs), "built": len(nvcc),
+                              "nvcc_s": nvcc, "build_wall_s": wall, "launches": counts,
+                              "oracle_max_abs_err": oracle_err, "flows": rows}
+        return card, rows, counts["net_sweep"]
+
+    def _flow_say(self, label, row, text):
+        self.say(f"{label}: {text}; card {row['card_s']:.2f} s, CPU {row['cpu_s']:.2f} s, "
+                 f"net_sweep launches {row['launches']}; card equal to the CPU")
+
+    def reliability(self):
+        """bench_reliability's flows on the card, held against the CPU and
+        gated by check_bench's limits."""
+        flows = {f"flip {n}": (lambda dev, n=n: flip_curves(n, dev)) for n in NAMES}
+        flows.update({f"retry {n} {m}": (lambda dev, n=n, m=m: retry_race(n, dev, m))
+                      for n in REL_RETRY_NAMES for m in ("sync", "async")})
+        card, rows, self.rel_launches = self._run_flows("reliability", flows)
+        top, bad = max(REL_NBITS), []
+        for n in NAMES:
+            label = f"flip {n}"
+            r, row = card[label], rows[label]
+            row.update(flip_scale={s: v["flip"] for s, v in r["scale"].items()},
+                       flip_n_bits={b: v["flip"] for b, v in r["n_bits"].items()})
+            ok = r["n_bits"][top]["flip"] <= MAX_NOMINAL_FLIP
+            bad += [] if ok else [label]
+            self._flow_say(label, row, f"{REL_FRAMES} frames, flip rate against the clean oracle "
+                           f"at {REL_SCALE_BITS} bits by noise scale "
+                           + ", ".join(f"{s}x {v:.4f}" for s, v in row["flip_scale"].items())
+                           + "; nominal by n_bits "
+                           + ", ".join(f"{b} {v:.4f}" for b, v in row["flip_n_bits"].items())
+                           + f" (limit {MAX_NOMINAL_FLIP} at {top}: {'ok' if ok else 'FAILED'})")
+        for label in (f"retry {n} {m}" for n in REL_RETRY_NAMES for m in ("sync", "async")):
+            r, row = card[label], rows[label]
+            st = r["stats"]
+            ok = r["retry"]["flip"] <= r["flat"]["flip"] and r["overhead"] <= MAX_RETRY_OVERHEAD
+            bad += [] if ok else [label]
+            row.update(flip_retry=r["retry"]["flip"], flip_flat=r["flat"]["flip"],
+                       mean_bits=st["total_bits"] / st["frames"], flat_bits=r["flat_bits"],
+                       overhead=r["overhead"], retry_rate=st["retries"] / st["frames"],
+                       unreliable=st["unreliable"], escalations=st["escalations"],
+                       drain_s=r["meta"]["seconds"])
+            self._flow_say(label, row, f"{REL_FRAMES} frames from {REL_RETRY_BITS} bits, "
+                           f"RetryPolicy({REL_RETRY}): flip retry {row['flip_retry']:.4f} vs flat "
+                           f"{row['flip_flat']:.4f} at {row['flat_bits']} bits, bit overhead "
+                           f"{row['overhead']:.3f}x (limit {MAX_RETRY_OVERHEAD}x: "
+                           f"{'ok' if ok else 'FAILED'}), retry rate {row['retry_rate']:.4f}, "
+                           f"unreliable {row['unreliable']}, final attempts {st['escalations']}; "
+                           f"drains on the card {row['drain_s']['retry'] * 1e3:.1f} ms retry, "
+                           f"{row['drain_s']['flat'] * 1e3:.1f} ms flat")
+        if bad:
+            raise AssertionError(f"reliability checks failed on the card: {bad}")
+
+    def drift(self):
+        """bench_drift's aging race and hot swap, and the drift monitor under
+        the driver, on the card, held against the CPU and gated by
+        check_bench's limits."""
+        flows = {f"race {n}": (lambda dev, n=n: aging_race(n, dev)) for n in NAMES}
+        flows["hot_swap"] = lambda dev: hot_swap(dev, SWAP_DELAY_CYCLES if dev == "cuda" else 0)
+        flows.update({f"monitor {n} {m}": (lambda dev, n=n, noisy=noisy, m=m:
+                                           monitor_run(n, noisy, m, dev))
+                      for n, noisy in MONITOR_CASES for m in ("sync", "async")})
+        card, rows, self.drift_launches = self._run_flows("drift", flows)
+        wins, bad = 0, []
+        for n in NAMES:
+            label = f"race {n}"
+            r, row = card[label], rows[label]
+            ok = r["flip_closed"] <= r["flip_open"] + DRIFT_FLIP_TOL
+            wins += r["flip_closed"] < r["flip_open"]
+            bad += [] if ok else [label]
+            row.update(flip_open=r["flip_open"], flip_closed=r["flip_closed"], recals=r["recals"],
+                       trajectory=[dict(zip(("launch", "cycle", "flip_open", "flip_closed",
+                                             "recals"), t)) for t in r["rows"]],
+                       swap_ms=[s * 1e3 for s in r["meta"]["swap_s"]],
+                       closed_drain_ms=[s * 1e3 for s in r["meta"]["closed_s"]])
+            self._flow_say(label, row, f"{DRIFT_LAUNCHES} launches of {DRIFT_BATCH} frames at "
+                           f"{DRIFT_BITS} bits, cycle 0-{r['rows'][-1][1]}: flip open / closed "
+                           + ", ".join(f"{t[2]:.4f}/{t[3]:.4f}" for t in r["rows"])
+                           + f"; final {r['flip_open']:.4f} vs {r['flip_closed']:.4f} "
+                           f"({r['recals']} refits; closed <= open + {DRIFT_FLIP_TOL}: "
+                           f"{'ok' if ok else 'FAILED'}); swap_net pairs "
+                           f"{max(row['swap_ms']):.3f} ms at most; closed drain "
+                           f"{min(row['closed_drain_ms']):.2f}-{max(row['closed_drain_ms']):.2f} ms")
+        if wins < DRIFT_MIN_WINS:
+            bad.append(f"strict wins {wins} < {DRIFT_MIN_WINS}")
+        self.report["drift"]["strict_wins"] = wins
+        r, row = card["hot_swap"], rows["hot_swap"]
+        meta = r["meta"]
+        pending_ok = len(meta["pending_at_swap"]) == 2 and all(meta["pending_at_swap"])
+        if not pending_ok:
+            bad.append(f"hot swap: launches pending at the swap {meta['pending_at_swap']}")
+        if r["lost"] or not r["preserved"]:
+            bad.append(f"hot swap: lost {r['lost']}, pre-swap frames preserved {r['preserved']}")
+        nvcc = [net_sweep_kernel.BUILDS.get(net_sweep_kernel.program_key(p), {}).get("seconds")
+                for p in meta["plans"]]
+        row.update(lost=r["lost"], preserved=r["preserved"], pending_at_swap=meta["pending_at_swap"],
+                   pending_after_swap=meta["pending_after_swap"], swap_ms=meta["swap_s"] * 1e3,
+                   recalibrated_network_ms=meta["recal_s"] * 1e3, nvcc_s=nvcc)
+        self._flow_say("hot_swap", row, f"{SWAP_NAME}, {SWAP_FRAMES} frames, max_batch "
+                       f"{SWAP_BATCH}: swap_net to recalibrated_network(cycle={SWAP_CYCLE}) with "
+                       f"both launches pending on the device (events incomplete at the swap "
+                       f"{meta['pending_at_swap']}, after it {meta['pending_after_swap']}, behind "
+                       f"{SWAP_DELAY_CYCLES} clocks of torch.cuda._sleep); swap {row['swap_ms']:.3f} "
+                       f"ms, recalibrated_network {row['recalibrated_network_ms']:.1f} ms (its "
+                       f"program built beforehand; nvcc of the two plans "
+                       + ", ".join("not in this phase" if s is None else f"{s:.2f} s" for s in nvcc)
+                       + f"); lost {r['lost']}, pre-swap frames equal to the twin's "
+                       f"{r['preserved']}")
+        for n, noisy in MONITOR_CASES:
+            for m in ("sync", "async"):
+                label = f"monitor {n} {m}"
+                r, row = card[label], rows[label]
+                row.update(states=[t[2] for t in r["trajectory"]], launches_driven=r["launches"])
+                self._flow_say(label, row, f"{'noisy' if noisy else 'clean'}, {MONITOR_FRAMES} "
+                               f"frames, {MONITOR_BITS} bits, max_batch {MONITOR_BATCH}: "
+                               f"{r['launches']} launches, states "
+                               + " ".join(s[0] for s in row["states"]))
+        if bad:
+            raise AssertionError(f"drift checks failed on the card: {bad}")
+
     # ------------------------------------------------------------ operators
     def paper_layer(self):
         """The paper-figure layer and the four examples at the reference's
@@ -4376,7 +4845,8 @@ def main() -> int:
             s.start_dryrun_early()
         run("build")
         for name in ("kernels", "main_path", "timing", "binary_timing", "drain_trace", "router",
-                     "paper_layer", "lm_serve", "lm_blocks", "lm_train", "multi_device"):
+                     "reliability", "drift", "paper_layer", "lm_serve", "lm_blocks", "lm_train",
+                     "multi_device"):
             run(name, "build")
         run("dryrun")
         run("operators", "build")
@@ -4417,6 +4887,8 @@ def main() -> int:
         "at": f"{TIMED_SCENARIO} B={BATCH} n_bits={N_BITS}",
         "call_ms": t["call_ms"],
         "router_launches": s.router_launches,
+        "reliability_launches": s.rel_launches,
+        "drift_launches": s.drift_launches,
         "multi_device_launches_per_rank": s.md_launches,
         "ms_b256": s.report["net_sweep"][TIMED_SCENARIO][MAX_BATCH]["ms"],
         "bound_ms_b256": s.report["net_sweep"][TIMED_SCENARIO][MAX_BATCH]["bound_ms"],

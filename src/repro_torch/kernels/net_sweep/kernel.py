@@ -86,10 +86,11 @@ def program_library(plan: SweepPlan) -> ctypes.CDLL:
 
 
 def prepare(plans) -> list:
-    """Build the libraries of ``plans``, one nvcc each, in parallel; returns
-    them in order."""
+    """Build the libraries of ``plans``, one nvcc each, in parallel (as many
+    at once as the process has cores); returns them in order."""
     plans = list(plans)
-    workers = max(1, min(len(plans), os.cpu_count() or 1))
+    cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else os.cpu_count()
+    workers = max(1, min(len(plans), cores or 1))
     with concurrent.futures.ThreadPoolExecutor(workers) as pool:
         return list(pool.map(program_library, plans))
 

@@ -168,3 +168,49 @@ def test_retry_escalation_with_drift_epochs_builds_nothing(cuda_device):
     for rid, (post, acc) in outs[1].items():
         np.testing.assert_array_equal(outs[0][rid][0], post)
         assert outs[0][rid][1] == acc
+
+
+@pytest.mark.cuda
+def test_swap_net_with_two_launches_pending_on_the_card(cuda_device):
+    """swap_net while both of a driver's launches are still pending on the
+    device (queued behind a device-side delay): no frame lost, the pre-swap
+    frames equal a never-swapped twin's, no program built in the drains, and
+    the whole output equal to the same run on the CPU."""
+    spec = T.by_name("pedestrian-night")
+    noise = T.NoiseModel(seed=4, cycle=4, wear_tau=4.0)
+    frames = _evidence(spec, 16, seed=6)
+
+    def serve(device, delay=0):
+        net = T.compile_network(spec, 1024, noise=noise, drift_epochs=2, device=device)
+        recal = T.recalibrated_network(net, cycle=8)     # its program is built here
+        twin = T.FrameDriver(net, max_batch=4, salt=99)
+        swapped = T.FrameDriver(net, max_batch=4, salt=99)
+        t_rids, s_rids = twin.submit(frames), swapped.submit(frames)
+        builds = K.net_sweep_cuda.builds
+        pending = []
+        if delay:
+            for _ in range(4):                # cached pinned and device blocks for the launches
+                net.run(prng.PRNGKey(0), frames[:4])
+            torch.cuda.synchronize()
+            torch.cuda._sleep(delay)
+        for drv in (twin, swapped):
+            drv.step(block=False)
+            drv.step(block=False)
+        if delay:
+            pending = [not lf.done.query() for lf in swapped._inflight]
+        swapped.swap_net(recal)
+        out_twin, out_swapped = twin.drain(), swapped.drain()
+        assert K.net_sweep_cuda.builds == builds
+        assert sorted(out_swapped) == s_rids                     # lost 0
+        for t, s in zip(t_rids[:8], s_rids[:8]):
+            np.testing.assert_array_equal(out_twin[t][0], out_swapped[s][0])
+            assert out_twin[t][1] == out_swapped[s][1]
+        return out_swapped, pending
+
+    card, pending = serve(cuda_device, delay=1 << 30)
+    assert pending == [True, True]
+    cpu, _ = serve("cpu")
+    assert sorted(card) == sorted(cpu)
+    for rid, (post, acc) in cpu.items():
+        np.testing.assert_array_equal(card[rid][0], post)
+        assert card[rid][1] == acc
