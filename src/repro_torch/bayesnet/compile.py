@@ -184,7 +184,13 @@ class CompiledNetwork:
     program's :class:`SweepPlan` (``None`` when unfused); ``tables`` holds the
     unfused program's per-node tables on ``device`` (``None`` when fused).
     ``mesh`` / ``shard_axes`` / ``n_shards`` describe the frame sharding of a
-    fused program (:func:`compile_network`'s ``devices``).
+    fused program (:func:`compile_network`'s ``devices``).  With a ``trace``
+    (:class:`~repro_torch.obs.Tracer`), ``run`` and ``decide`` record a
+    ``net.run`` or ``net.decide`` span (attrs ``network``, ``frames``) whose
+    children are ``net.upload`` (the evidence's conversion and upload, attrs
+    ``bytes`` and ``pinned``) and, fused, ``net.sweep`` (the ``net_sweep``
+    call, validation to launch) and ``net.assemble`` (the posterior's ops as
+    they are enqueued); without one they make no tracer call.
     """
 
     spec: NetworkSpec
@@ -205,6 +211,7 @@ class CompiledNetwork:
     program: dict | None = dataclasses.field(default=None, repr=False, compare=False)
     mux_mode: str = "gather"
     tables: tuple | None = dataclasses.field(default=None, repr=False, compare=False)
+    trace: Tracer | None = dataclasses.field(default=None, repr=False, compare=False)
 
     def _check_frames(self, ev_frames) -> torch.Tensor:
         if isinstance(ev_frames, torch.Tensor):
@@ -224,6 +231,8 @@ class CompiledNetwork:
         return _count_assembler(self.query_cards)(numer, denom)
 
     def run(self, key, ev_frames) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.trace is not None:
+            return self._traced("net.run", key, ev_frames, False)
         ev = self._check_frames(ev_frames)
         if not self.fused:
             return self._run_unfused(key, ev)
@@ -238,12 +247,34 @@ class CompiledNetwork:
         :func:`posterior_argmax` of its posterior.  Either way the decisions
         equal :func:`posterior_argmax` of the posterior bit for bit.
         """
+        if self.trace is not None:
+            return self._traced("net.decide", key, ev_frames, True)
         ev = self._check_frames(ev_frames)
         if not self.fused:
             post, denom = self._run_unfused(key, ev)
             return post, posterior_argmax(post), denom
         numer, denom, dec = self._sweep(key, ev, True)
         return self._assemble(numer, denom), dec, denom
+
+    def _traced(self, name: str, key, ev_frames, decide: bool) -> tuple:
+        """``run`` or ``decide`` under the network's tracer: the same calls,
+        each part in a span of its own."""
+        tr = self.trace
+        with tr.span(name, network=self.spec.name) as top:
+            with tr.span("net.upload") as sp:
+                ev = self._check_frames(ev_frames)
+                sp.attrs.update(bytes=ev.numel() * ev.element_size(),
+                                pinned=self.device.type == "cuda"
+                                and not isinstance(ev_frames, torch.Tensor))
+            top.attrs["frames"] = ev.shape[0]
+            if not self.fused:
+                post, denom = self._run_unfused(key, ev)
+                return (post, posterior_argmax(post), denom) if decide else (post, denom)
+            with tr.span("net.sweep"):
+                outs = self._sweep(key, ev, decide)
+            with tr.span("net.assemble"):
+                post = self._assemble(outs[0], outs[1])
+            return (post, outs[2], outs[1]) if decide else (post, outs[1])
 
     def _sweep(self, key, ev: torch.Tensor, decide: bool):
         """One sweep launch: sharded over the frame axis when it divides.
@@ -519,7 +550,8 @@ def compile_network(
     ``noise`` injects crossbar non-idealities at plan-build time, and
     ``drift_epochs`` / ``program`` shape the plan as in :func:`sweep_plan`.
     ``trace`` records the lowering as a ``compile_network`` span carrying
-    :func:`network_stats`.
+    :func:`network_stats`, and stays on the network, whose ``run`` and
+    ``decide`` then record their spans (:class:`CompiledNetwork`).
 
     ``devices=N`` (fused only) shards the sweep's frames over the N ranks of
     the started process group, one ``net_sweep`` launch per rank on its
@@ -540,7 +572,7 @@ def compile_network(
                 devices=devices, device=device,
             )
             sp.attrs.update(network_stats(net))
-            return net
+            return dataclasses.replace(net, trace=trace)
     dev = backend.resolve_device(device)
     queries = tuple(queries if queries is not None else spec.queries)
     evidence = tuple(evidence if evidence is not None else spec.evidence)

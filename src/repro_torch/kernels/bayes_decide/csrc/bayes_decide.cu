@@ -35,6 +35,11 @@
 // 4096 threads in 32), and the full batch takes one thread per stream and 8
 // streams per thread, so a tile's queued work spreads over all its warps.
 //
+// Counter.  Given a non-null `queued`, each block sums the streams it queues
+// for hashing (those with no modality at 0 and some below 256) and adds the
+// sum to *queued with one atomic at its end; the total stays on the device
+// across launches.  With a null pointer the counting is skipped.
+//
 // Bound on H100.  sne_encode's integer work per entropy word, n_bits / 4
 // entropy words per hashed modality of a queued stream, plus the AND over
 // those modalities and one popcount per stream word and the argmax's compare
@@ -66,12 +71,15 @@ __device__ int stream_count(const float* __restrict__ p, unsigned long long plan
 
 // chunk 1: the K * split threads of each row of the tile in turn, every stream
 // where it lies; every lane of a warp runs every pass, so the shuffles see
-// whole warps, and a stream's split lanes are adjacent and aligned in one warp
-__device__ void decide_streams(const float* __restrict__ p, int* counts, int n_mod,
-                               long long n_rows, int n_cls, int n_out, int log2_split,
-                               long long row0, int rows, SneKey key, uint32_t offset) {
+// whole warps, and a stream's split lanes are adjacent and aligned in one warp.
+// Returns the hashed streams whose lane 0 is this thread's, if `tally`.
+__device__ unsigned int decide_streams(const float* __restrict__ p, int* counts, int n_mod,
+                                       long long n_rows, int n_cls, int n_out, int log2_split,
+                                       long long row0, int rows, SneKey key, uint32_t offset,
+                                       bool tally) {
   const unsigned long long plane = (unsigned long long)n_rows * n_cls;
   const int split = 1 << log2_split, group = n_cls * split, items = rows * group;
+  unsigned int hashed = 0;
   for (int base = 0; base < items; base += blockDim.x) {
     const int i = base + (int)threadIdx.x;
     const int j = i % group, s = j & (split - 1);
@@ -81,16 +89,20 @@ __device__ void decide_streams(const float* __restrict__ p, int* counts, int n_m
     const int kind = valid ? sne_stream_kind(p + row, plane, n_mod) : SNE_DEAD;
     const int c = stream_count(p, plane, n_mod, row, valid, n_out, s, split, kind, key, offset);
     if (valid && s == 0) counts[row] = c;
+    if (tally) hashed += valid && s == 0 && kind == SNE_HASHED;
   }
+  return hashed;
 }
 
 // chunk > 1: windows of the tile's streams, each in two passes.  Pass 1, a
 // thread per stream (chunk each): a dead or full stream's count is stored, one
 // that needs a hash is queued.  Pass 2: split lanes per queued stream, packed
 // into the block's first warps; a warp past the last stream skips the pass.
-__device__ void decide_queued(const float* __restrict__ p, int* counts, int n_mod,
+// Returns the tile's queued streams in thread 0, if `tally` (0 elsewhere).
+__device__ unsigned int decide_queued(const float* __restrict__ p, int* counts, int n_mod,
                               long long n_rows, int n_cls, int n_out, int log2_split, int chunk,
-                              long long row0, int rows, SneKey key, uint32_t offset) {
+                              long long row0, int rows, SneKey key, uint32_t offset,
+                              bool tally) {
   __shared__ int queue[QUEUE];
   __shared__ int n_queued;
   const unsigned long long plane = (unsigned long long)n_rows * n_cls;
@@ -99,6 +111,7 @@ __device__ void decide_queued(const float* __restrict__ p, int* counts, int n_mo
   const int i = (int)threadIdx.x, lane = i & 31, s = i & (split - 1);
   const int streams = rows * n_cls;
   const unsigned long long s0 = (unsigned long long)row0 * n_cls;   // the tile's first stream
+  unsigned int tile_queued = 0;
   for (int first = 0; first < streams; first += window) {
     if (i == 0) n_queued = 0;
     __syncthreads();
@@ -120,6 +133,7 @@ __device__ void decide_queued(const float* __restrict__ p, int* counts, int n_mo
       if (hashed) queue[slot + __popc(ballot & ((1u << lane) - 1u))] = j;
     }
     __syncthreads();
+    if (tally && i == 0) tile_queued += n_queued;
     const int units = n_queued * split;
     for (int u0 = 0; u0 < units; u0 += threads) {
       if (u0 + (i & ~31) < units) {
@@ -133,29 +147,45 @@ __device__ void decide_queued(const float* __restrict__ p, int* counts, int n_mo
     }
     __syncthreads();   // the queue is read before the next window refills it
   }
+  return tile_queued;
 }
 
 // A block takes tiles of `rows_per_tile` rows; after a tile's streams are
 // counted, a thread per row reads the row's K counts back and stores the argmax.
+// With `queued`, the block's queued streams are summed in shared memory and
+// added to *queued once, by thread 0, at the block's end.
 __global__ void bayes_decide_kernel(const float* __restrict__ p, int* __restrict__ dec,
                                     int* counts, int n_mod, long long n_rows, int n_cls,
                                     int n_out, int log2_split, int chunk, int rows_per_tile,
-                                    SneKey key, uint32_t offset) {
+                                    SneKey key, uint32_t offset,
+                                    unsigned long long* __restrict__ queued) {
+  __shared__ unsigned int block_hashed;
+  const bool tally = queued != nullptr;
+  if (tally && threadIdx.x == 0) block_hashed = 0;
+  unsigned int hashed = 0;
   const long long n_tiles = (n_rows + rows_per_tile - 1) / rows_per_tile;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long row0 = tile * rows_per_tile;
     const int rows = (int)min((long long)rows_per_tile, n_rows - row0);
     if (chunk == 1) {
-      decide_streams(p, counts, n_mod, n_rows, n_cls, n_out, log2_split, row0, rows, key,
-                     offset);
+      hashed += decide_streams(p, counts, n_mod, n_rows, n_cls, n_out, log2_split, row0, rows,
+                               key, offset, tally);
     } else {
-      decide_queued(p, counts, n_mod, n_rows, n_cls, n_out, log2_split, chunk, row0, rows, key,
-                    offset);
+      hashed += decide_queued(p, counts, n_mod, n_rows, n_cls, n_out, log2_split, chunk, row0,
+                              rows, key, offset, tally);
     }
     __syncthreads();   // the tile's counts are stored and visible to the block
     for (int x = (int)threadIdx.x; x < rows; x += blockDim.x) {
       dec[row0 + x] = sne_argmax(counts + (unsigned long long)(row0 + x) * n_cls, n_cls);
     }
+  }
+  if (tally) {
+    // a warp's sum by shuffles, one shared add per warp, one global add per block
+    for (int o = 16; o > 0; o >>= 1) hashed += __shfl_xor_sync(0xFFFFFFFFu, hashed, o);
+    __syncthreads();   // block_hashed is zeroed before any warp adds to it
+    if ((threadIdx.x & 31) == 0 && hashed) atomicAdd(&block_hashed, hashed);
+    __syncthreads();
+    if (threadIdx.x == 0 && block_hashed) atomicAdd(queued, (unsigned long long)block_hashed);
   }
 }
 
@@ -166,7 +196,7 @@ extern "C" int bayes_decide_launch(const void* p, void* dec, void* counts, int n
                                    long long n_rows, int n_cls, int n_out,
                                    unsigned int kd0, unsigned int kd1, unsigned int offset,
                                    int log2_split, int chunk, int rows_per_tile, int threads,
-                                   int max_blocks, void* stream) {
+                                   int max_blocks, void* stream, void* queued) {
   if (threads % 32 || chunk < 1 || (threads >> log2_split) * chunk > QUEUE) {
     return (int)cudaErrorInvalidValue;
   }
@@ -174,6 +204,6 @@ extern "C" int bayes_decide_launch(const void* p, void* dec, void* counts, int n
   if (blocks > max_blocks) blocks = max_blocks;   // the tile loop strides over the rest
   bayes_decide_kernel<<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)p, (int*)dec, (int*)counts, n_mod, n_rows, n_cls, n_out, log2_split, chunk,
-      rows_per_tile, sne_key(kd0, kd1), offset);
+      rows_per_tile, sne_key(kd0, kd1), offset, (unsigned long long*)queued);
   return (int)cudaGetLastError();
 }

@@ -32,7 +32,7 @@ def library() -> ctypes.CDLL:
     """The built kernel library, with its C signature declared."""
     lib = backend.load_library(SOURCE, deps=DEPS)
     p, i, ll, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
-    lib.bayes_decide_launch.argtypes = [p, p, p, i, ll, i, i, u, u, u, i, i, i, i, i, p]
+    lib.bayes_decide_launch.argtypes = [p, p, p, i, ll, i, i, u, u, u, i, i, i, i, i, p, p]
     lib.bayes_decide_launch.restype = i
     return lib
 
@@ -56,12 +56,15 @@ def launch_split(rows: int, n_cls: int, n_out: int, fill_threads: int) -> tuple:
 
 
 def bayes_decide_cuda(kd0: int, kd1: int, p: torch.Tensor, *, n_bits: int,
-                      offset: int = 0):
+                      offset: int = 0, queued: torch.Tensor | None = None):
     """p (M, R, K) float32 on a CUDA device -> (decisions (R,), counts (R, K)) int32.
 
     Entropy word ``i`` of stream ``(m, r, k)`` hashes the counter
     ``((m * R + r) * K + k) * n_bits // 4 + i + offset`` (mod 2**32), as
     ``counter_hash_words(key, (M, R, K), n_bits // 4, offset=offset)`` does.
+    ``queued``, a one-element int64 tensor on the same device, gains the
+    number of streams the launch queues for hashing (one atomic add per
+    block); the call does not wait for it.
     """
     if p.device.type != "cuda":
         raise ValueError(f"bayes_decide_cuda needs a CUDA tensor, got {p.device}")
@@ -70,6 +73,10 @@ def bayes_decide_cuda(kd0: int, kd1: int, p: torch.Tensor, *, n_bits: int,
                          f"{tuple(p.shape)} {p.dtype}")
     if n_bits % 32 or n_bits <= 0:
         raise ValueError(f"n_bits must be a positive multiple of 32, got {n_bits}")
+    if queued is not None and (queued.dtype != torch.int64 or queued.numel() != 1
+                               or queued.device != p.device):
+        raise ValueError(f"queued must be one int64 on {p.device}, got "
+                         f"{tuple(queued.shape)} {queued.dtype} on {queued.device}")
     p = p.contiguous()
     m, r, k = p.shape
     if r == 0 or k == 0:
@@ -87,7 +94,8 @@ def bayes_decide_cuda(kd0: int, kd1: int, p: torch.Tensor, *, n_bits: int,
         err = lib.bayes_decide_launch(
             p.data_ptr(), dec.data_ptr(), counts.data_ptr(), m, r, k, n_out,
             kd0 & MASK32, kd1 & MASK32, int(offset) & MASK32, split.bit_length() - 1,
-            chunk, rows_per_tile, THREADS, MAX_BLOCKS, stream)
+            chunk, rows_per_tile, THREADS, MAX_BLOCKS, stream,
+            None if queued is None else queued.data_ptr())
     if err != 0:
         raise RuntimeError(f"bayes_decide kernel launch failed: cudaError {err}")
     bayes_decide_cuda.launches += 1

@@ -51,7 +51,29 @@ def _decide_packed(flat_p: torch.Tensor, rand: torch.Tensor):
     return torch.argmax(counts, dim=-1).to(torch.int32), counts
 
 
-def bayes_decide(key, p_modal, n_bits: int = 128, *, device="cuda"):
+def queued_streams(flat_p: torch.Tensor) -> torch.Tensor:
+    """The (row, class) streams of p (M, R, K) that the kernel queues for
+    hashing, as a 0-d int64 tensor: those with no modality at level 0 and
+    some modality below 256 (the others count 0 or n_bits unhashed)."""
+    t = rng.threshold_from_p(flat_p)
+    return ((t > 0).all(0) & (t < 256).any(0)).sum()
+
+
+def _prepare(key, p_modal, n_bits, device):
+    """(p on the device, its (M, R, K) view, the key as the launch takes it)."""
+    p, flat = _modal(p_modal, n_bits, device)
+    return p, flat, rng.seed_words(key) if flat.device.type == "cuda" else key
+
+
+def _launch(flat, key, n_bits, queued=None):
+    if flat.device.type == "cuda":
+        return bayes_decide_cuda(*key, flat, n_bits=n_bits, queued=queued)
+    if queued is not None:
+        queued += queued_streams(flat)
+    return bayes_decide_ref(flat, _draw_entropy(key, flat, n_bits))
+
+
+def bayes_decide(key, p_modal, n_bits: int = 128, *, device="cuda", trace=None):
     """Fused batched Bayes decision over modal posteriors.
 
     p_modal: (M, ..., K) single-modal class posteriors.  Each (modality,
@@ -60,14 +82,27 @@ def bayes_decide(key, p_modal, n_bits: int = 128, *, device="cuda"):
 
     Returns (decisions (...,) int32 argmax class, counts (..., K) int32
     stream popcounts -- ``counts / counts.sum(-1)`` is the fused posterior).
+
+    With a ``trace`` (:class:`~repro_torch.obs.Tracer`) the call records an
+    ``op.bayes_decide`` span with children ``op.prepare`` (conversion,
+    reshape, key words) and ``op.launch`` (outputs, launch sizing, launch),
+    and counts in the tracer ``bayes_decide.streams``, the (row, class)
+    streams of the call, and ``bayes_decide.queued``, those queued for
+    hashing: a device tensor the kernel adds to, read by ``trace.totals()``.
     """
-    p, flat = _modal(p_modal, n_bits, device)
-    if flat.device.type == "cuda":
-        kd0, kd1 = rng.seed_words(key)
-        dec, cnt = bayes_decide_cuda(kd0, kd1, flat, n_bits=n_bits)
-    else:
-        dec, cnt = bayes_decide_ref(flat, _draw_entropy(key, flat, n_bits))
-    return dec.reshape(p.shape[1:-1]), cnt.reshape(p.shape[1:])
+    if trace is None:
+        p, flat, kw = _prepare(key, p_modal, n_bits, device)
+        dec, cnt = _launch(flat, kw, n_bits)
+        return dec.reshape(p.shape[1:-1]), cnt.reshape(p.shape[1:])
+    with trace.span("op.bayes_decide"):
+        with trace.span("op.prepare"):
+            p, flat, kw = _prepare(key, p_modal, n_bits, device)
+        with trace.span("op.launch"):
+            queued = trace.counter("bayes_decide.queued", lambda: torch.zeros(
+                (), dtype=torch.int64, device=flat.device))
+            dec, cnt = _launch(flat, kw, n_bits, queued)
+        trace.add("bayes_decide.streams", flat.shape[1] * flat.shape[2])
+        return dec.reshape(p.shape[1:-1]), cnt.reshape(p.shape[1:])
 
 
 def bayes_decide_packed(key, p_modal, n_bits: int = 128, *, device="cuda"):

@@ -1,7 +1,9 @@
 """Lightweight, zero-dep telemetry for the serving path (DESIGN.md §13).
 
     trace.py      Tracer / Span -- nested sync spans + async (dispatch-to-
-                  harvest) spans, Chrome/Perfetto JSON export, optional
+                  harvest) spans, counters beside them (host totals, and
+                  device tensors a kernel adds to, read once after the
+                  work), Chrome/Perfetto JSON export, optional
                   torch.profiler record_function passthrough
     metrics.py    MetricsRegistry -- counters / gauges / named histograms
     histogram.py  LatencyHistogram -- log-spaced streaming bins with exact
@@ -10,7 +12,11 @@
 
 Everything is off by default: instrumented layers take ``trace=None`` /
 ``metrics=None`` and the untouched path stays bit-identical (regression-
-tested, not assumed).
+tested, not assumed).  Besides the driver, router and engine, the decision
+path (``CompiledNetwork.decide`` / ``run``: ``net.upload``, ``net.sweep``,
+``net.assemble``) and the fusion operators' entries (``op.prepare``,
+``op.launch``; ``bayes_decide`` also counts the streams its kernel queues
+for hashing) record spans when given a tracer.
 
 The crossbar-health loop (DESIGN.md §15) publishes through the same
 registry: each :class:`~repro_torch.bayesnet.DriftMonitor` exports per-statistic

@@ -19,14 +19,21 @@ pipelining being measured.  The tracer's answer is *two kinds of spans*:
   tail of the last one.  Nothing pretends device work finished before
   something observed that it did.
 
+Counters sit beside the spans they explain: ``add`` keeps a host total,
+``counter`` hands out an object the caller adds to in place (a device tensor
+a kernel adds to, read once by ``totals`` after the work).
+
 Spans are plain records (name, track, interval, parent id, attrs); export is
 the Chrome trace event format (the JSON flavour Perfetto and
 ``chrome://tracing`` both load): one ``"X"`` complete event per finished
 span, ``"i"`` instants for point events, and ``"M"`` metadata naming each
-track.  ``Tracer(annotate=True)`` additionally wraps sync spans in
-``torch.profiler.record_function`` so the same region names land inside a
-``torch.profiler`` trace when one is being captured; the import is lazy and
-failure degrades to plain spans (the obs layer itself never requires torch).
+track.  ``Tracer(annotate=True)`` additionally wraps sync spans in a
+``torch.profiler`` range (``record_function``'s C++ form,
+``torch._C._profiler._RecordFunctionFast``, where torch has it; else
+``torch.profiler.record_function``) so the same region names land inside a
+``torch.profiler`` trace when one is being captured, on the clock of its
+kernels and copies; the import is lazy and failure degrades to plain spans
+(the obs layer itself never requires torch).
 """
 
 from __future__ import annotations
@@ -79,6 +86,7 @@ class Tracer:
         self._stack: List[int] = []
         self._annotate = annotate
         self._annotation_cls = None  # resolved lazily on first sync span
+        self.counters: Dict[str, Any] = {}
 
     # -------------------------------------------------------------- recording
     def begin(
@@ -146,13 +154,37 @@ class Tracer:
             return None
         if self._annotation_cls is None:
             try:
-                from torch.profiler import record_function
+                import torch
 
-                self._annotation_cls = record_function
+                # record_function's C++ form where torch has one: a profiler
+                # range at under half record_function's host cost, kept on
+                # the host's timeline only
+                fast = getattr(getattr(torch._C, "_profiler", None), "_RecordFunctionFast", None)
+                self._annotation_cls = fast or torch.profiler.record_function
             except Exception:  # torch absent or too old: degrade silently
                 self._annotate = False
                 return None
         return self._annotation_cls(name)
+
+    # -------------------------------------------------------------- counting
+    def add(self, name: str, n) -> None:
+        """Add ``n`` to the host counter ``name``."""
+        self.counters[name] = self.counters.get(name, 0) + n
+
+    def counter(self, name: str, make):
+        """The counter ``name``, made by ``make()`` on first use: an object
+        the caller adds to in place, such as a device tensor that a kernel
+        adds to, so that counting never waits on the device."""
+        c = self.counters.get(name)
+        if c is None:
+            c = self.counters[name] = make()
+        return c
+
+    def totals(self) -> Dict[str, int]:
+        """Every counter as an int.  A device counter is read here, which
+        waits for the work queued before the read: read once, after the
+        work being counted."""
+        return {name: int(v) for name, v in self.counters.items()}
 
     # -------------------------------------------------------------- querying
     @property
@@ -160,25 +192,12 @@ class Tracer:
         """All spans in begin order (open ones included)."""
         return list(self._spans)
 
-    @property
-    def open_spans(self) -> List[Span]:
-        return [s for s in self._spans if not s.done]
-
     def named(self, prefix: str) -> List[Span]:
         """Spans whose name starts with ``prefix``, in begin order."""
         return [s for s in self._spans if s.name.startswith(prefix)]
 
     def get(self, span_id: int) -> Span:
         return self._spans[span_id]
-
-    def span_counts(self) -> Dict[str, int]:
-        """Multiset of span names -- the async-vs-sync equality invariant:
-        a sync and an async drain of the same workload must traverse the
-        same launches/harvests, only on a different wall-clock schedule."""
-        out: Dict[str, int] = {}
-        for s in self._spans:
-            out[s.name] = out.get(s.name, 0) + 1
-        return out
 
     # ------------------------------------------------------------- exporting
     def to_chrome_trace(self) -> Dict[str, Any]:

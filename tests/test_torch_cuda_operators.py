@@ -21,6 +21,7 @@ from repro_torch.core import rng
 from repro_torch.kernels import backend, bayes_decide, bayes_decide_packed, fusion_map
 from repro_torch.kernels import pand_popcount, sne_encode
 from repro_torch.kernels.bayes_decide import kernel as BK
+from repro_torch.kernels.bayes_decide import ops as bd_ops
 from repro_torch.kernels.bayes_decide.ref import bayes_decide_ref
 from repro_torch.kernels.fusion_map import kernel as FK
 from repro_torch.kernels.fusion_map.ref import fusion_map_ref
@@ -28,6 +29,7 @@ from repro_torch.kernels.pand_popcount import kernel as PK
 from repro_torch.kernels.sne_encode import kernel as SK
 from repro_torch.kernels.sne_encode.ref import sne_encode_ref
 from repro_torch.models import bayes_head
+from repro_torch.obs import Tracer
 
 torch.set_num_threads(1)
 
@@ -123,6 +125,42 @@ def test_integer_kernels_on_peaked_posteriors(n_bits, fill, cuda_device, monkeyp
     p = np.exp(logits - logits.max(-1, keepdims=True))
     p = (p / p.sum(-1, keepdims=True)).astype(np.float32)
     _check_integer_kernels((m, r, k, n_bits, WRAP), cuda_device, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [None, 1], ids=["grid", "one-block"])
+@pytest.mark.parametrize("fill", [None, 256], ids=["streams", "queued"])
+def test_bayes_decide_counts_the_streams_it_queues(fill, blocks, cuda_device, monkeypatch):
+    # the card's own fill takes decide_streams (chunk 1), a card of 256
+    # threads decide_queued (chunk 8); one block walks every tile, so its
+    # one add carries the sum over tiles.  Counts and decisions are the
+    # same with the counter on and off, and its total is the plain count
+    if fill is not None:
+        monkeypatch.setattr(backend, "fill_threads", lambda index: fill)
+    if blocks is not None:
+        monkeypatch.setattr(BK, "MAX_BLOCKS", blocks)
+    m, r, k, n_bits = 2, 3001, 16, 128
+    logits = 3.0 * np.random.default_rng(7).standard_normal((m, r, k))
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    p = (p / p.sum(-1, keepdims=True)).astype(np.float32)
+    p[0, :5, :] = 0.0                      # dead streams
+    p[:, 5:9, :] = 1.0                     # full streams
+    _, chunk, _ = BK.launch_split(r, k, n_bits // 32, backend.fill_threads(0))
+    assert (chunk > 1) == (fill is not None)
+    pc = torch.from_numpy(p).to(cuda_device)
+    kd0, kd1 = (int(v) for v in KD)
+    dec0, cnt0 = BK.bayes_decide_cuda(kd0, kd1, pc, n_bits=n_bits)
+    queued = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    dec1, cnt1 = BK.bayes_decide_cuda(kd0, kd1, pc, n_bits=n_bits, queued=queued)
+    BK.bayes_decide_cuda(kd0, kd1, pc, n_bits=n_bits, queued=queued)
+    want = int(bd_ops.queued_streams(torch.from_numpy(p)))
+    assert 0 < want < r * k
+    assert int(queued) == 2 * want
+    assert torch.equal(dec0, dec1) and torch.equal(cnt0, cnt1)
+    tr = Tracer()
+    dec2, cnt2 = bayes_decide(KD, p, n_bits, device=cuda_device, trace=tr)
+    assert torch.equal(dec0, dec2) and torch.equal(cnt0, cnt2)
+    assert tr.totals() == {"bayes_decide.queued": want, "bayes_decide.streams": r * k}
 
 
 @pytest.mark.cuda
