@@ -430,13 +430,15 @@ TIMED_SCENARIO = "intersection"       # the largest network: the kernels line's 
 F32_FLOPS_PER_S = 67e12               # H100 SXM float32 outside the tensor cores (data sheet)
 # The least integer work per entropy word of sne_encode / bayes_decide (their
 # shared body, kernels/sne_encode/csrc/sne_body.h), counted as net_sweep's: a
-# cone of logic over at most three values is one LOP3.  On the ALU alone (15):
-# the hash's 6 shifts and 6 3-input XORs (both keys fold into them), the
+# cone of logic over at most three values is one LOP3.  On the ALU alone (11):
+# the hash's 3 shifts and 5 XORs (a word's 8 counters share the first step,
+# each XORing it with its place in the word; the first round's last shift-XOR
+# and the second's first cancel, leaving one XOR with the second key), the
 # compare's OR and one combining cone (at a row's threshold class; the kernels
 # take one more to serve both classes without a branch), and the pack's funnel
-# shift.  Multiply or add (7, either pipe): the hash's 4 multiplies and the
-# counter's add, the compare's subtract, the pack's multiply.
-SNE_ALU_OPS, SNE_MULADD_OPS = 15, 7
+# shift.  Multiply or add (6, either pipe): the hash's 4 multiplies, the
+# compare's subtract, the pack's multiply.
+SNE_ALU_OPS, SNE_MULADD_OPS = 11, 6
 # node_mux's bound per entropy word it needs: the hash's 18 operations, all
 # charged to the ALU lanes
 NM_HASH_OPS = 18

@@ -23,17 +23,24 @@
 // posteriors put most streams there (69 % of the full paper-bayes-fusion
 // batch).  So a block takes a tile of `rows_per_tile` rows in windows of
 // streams, each in two passes: first a thread per stream (`chunk` streams
-// each) stores those counts and queues the others in shared memory; then
+// each) loads its streams' probabilities, a modality at a time with the
+// chunk's loads in flight together, classifies them by comparing p with the
+// levels' edges (level 0 is p <= 1/512, NaN included; 256 is p >= 511/512),
+// stores those counts and queues the others in shared memory; then
 // `split` threads per queued stream (a power of two up to 32, adjacent lanes
 // of one warp, packed into the block's first warps) share its words, each
 // ANDing the hashed modalities of its words and popcounting them, and add
-// their counts with __shfl_xor_sync; lane 0 stores counts[r, k].  After the
-// tile's last window a thread per row reads the row's K counts back and
-// stores the argmax, so K is arbitrary.  The wrapper picks split, then chunk,
-// from (R, K, n_out): small batches still fill the card (bench_latency's 4096
-// decisions of M = K = 2 at 128 bits run 32,768 threads in 256 blocks, not
-// 4096 threads in 32), and the full batch takes one thread per stream and 8
-// streams per thread, so a tile's queued work spreads over all its warps.
+// their counts with __shfl_xor_sync; lane 0 stores counts[r, k].  A window's
+// last round is partial, on the block's first warps; the H100 places a
+// block's warps on all four SM sub-partitions alike, so those rounds load them
+// evenly (counted per sub-partition on the full batch: within 0.4 % of the
+// mean).  After the tile's last window a thread per row reads the row's K
+// counts back and stores the argmax, so K is arbitrary.  The wrapper picks
+// split, then chunk, from (R, K, n_out): small batches still fill the card
+// (bench_latency's 4096 decisions of M = K = 2 at 128 bits run 32,768 threads
+// in 256 blocks, not 4096 threads in 32), and the full batch takes one thread
+// per stream and 8 streams per thread, so a tile's queued work spreads over
+// all its warps.
 //
 // Counter.  Given a non-null `queued`, each block sums the streams it queues
 // for hashing (those with no modality at 0 and some below 256) and adds the
@@ -53,6 +60,9 @@
 namespace {
 
 constexpr int QUEUE = 1024;   // streams one pass classifies, at most: threads * chunk / split
+constexpr int MAX_CHUNK = 8;  // streams a thread classifies per pass
+constexpr float LEVEL0_EDGE = 0x1p-9f;       // p * 256 <= 0.5 rounds to level 0
+constexpr float LEVEL256_EDGE = 0x1.ffp-1f;  // p * 256 >= 255.5 rounds to level 256
 
 // The count of stream `row` over this thread's words, the split lanes' sum
 // left in every lane: a dead stream counts 0 and a full one n_bits, unhashed.
@@ -100,9 +110,9 @@ __device__ unsigned int decide_streams(const float* __restrict__ p, int* counts,
 // into the block's first warps; a warp past the last stream skips the pass.
 // Returns the tile's queued streams in thread 0, if `tally` (0 elsewhere).
 __device__ unsigned int decide_queued(const float* __restrict__ p, int* counts, int n_mod,
-                              long long n_rows, int n_cls, int n_out, int log2_split, int chunk,
-                              long long row0, int rows, SneKey key, uint32_t offset,
-                              bool tally) {
+                                      long long n_rows, int n_cls, int n_out, int log2_split,
+                                      int chunk, long long row0, int rows, SneKey key,
+                                      uint32_t offset, bool tally) {
   __shared__ int queue[QUEUE];
   __shared__ int n_queued;
   const unsigned long long plane = (unsigned long long)n_rows * n_cls;
@@ -114,18 +124,31 @@ __device__ unsigned int decide_queued(const float* __restrict__ p, int* counts, 
   unsigned int tile_queued = 0;
   for (int first = 0; first < streams; first += window) {
     if (i == 0) n_queued = 0;
-    __syncthreads();
-    for (int x0 = 0; x0 < window; x0 += threads) {
-      const int j = first + x0 + i;
-      bool hashed = false;
-      if (x0 + i < window && j < streams) {
-        const int kind = sne_stream_kind(p + s0 + j, plane, n_mod);
-        if (kind == SNE_HASHED) {
-          hashed = true;
-        } else {
-          counts[s0 + j] = kind == SNE_FULL ? 32 * n_out : 0;
-        }
+    // bit c of dead / full: stream first + c * threads + i has a modality at
+    // level 0 / every modality at 256
+    unsigned int dead = 0, full = (1u << MAX_CHUNK) - 1;
+    const float* pm = p + s0 + first + i;
+    for (int m = 0; m < n_mod; ++m, pm += plane) {
+      float v[MAX_CHUNK];
+#pragma unroll
+      for (int c = 0; c < MAX_CHUNK; ++c) {
+        const int x = c * threads + i;
+        v[c] = c < chunk && x < window && first + x < streams ? pm[c * threads] : 0.5f;
       }
+#pragma unroll
+      for (int c = 0; c < MAX_CHUNK; ++c) {
+        dead |= (unsigned int)!(v[c] > LEVEL0_EDGE) << c;
+        full &= ~((unsigned int)!(v[c] >= LEVEL256_EDGE) << c);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < MAX_CHUNK; ++c) {
+      if (c >= chunk) break;
+      const int x0 = c * threads, j = first + x0 + i;
+      const bool in = x0 + i < window && j < streams;
+      const bool hashed = in && !((dead | full) >> c & 1u);
+      if (in && !hashed) counts[s0 + j] = (dead >> c & 1u) ? 0 : 32 * n_out;
       const unsigned int ballot = __ballot_sync(0xFFFFFFFFu, hashed);
       int slot = 0;
       if (lane == 0 && ballot) slot = atomicAdd(&n_queued, __popc(ballot));
@@ -197,7 +220,7 @@ extern "C" int bayes_decide_launch(const void* p, void* dec, void* counts, int n
                                    unsigned int kd0, unsigned int kd1, unsigned int offset,
                                    int log2_split, int chunk, int rows_per_tile, int threads,
                                    int max_blocks, void* stream, void* queued) {
-  if (threads % 32 || chunk < 1 || (threads >> log2_split) * chunk > QUEUE) {
+  if (threads % 32 || chunk < 1 || chunk > MAX_CHUNK || (threads >> log2_split) * chunk > QUEUE) {
     return (int)cudaErrorInvalidValue;
   }
   long long blocks = (n_rows + rows_per_tile - 1) / rows_per_tile;

@@ -15,14 +15,22 @@
 //
 //   * hash.  lowbias32's first step, x ^= x >> 16, distributes over the XOR
 //     with kd0, so the key enters as k0 = kd0 ^ (kd0 >> 16) in the same
-//     3-input XOR; kd1 joins the last XOR of the first round.  6 shifts, 6
-//     3-input XORs, 4 multiplies and the counter's add.
+//     3-input XOR.  Between the rounds the first one's last step and the
+//     second one's first cancel on x: with y = x ^ (x >> 16), (y ^ kd1) ^
+//     ((y ^ kd1) >> 16) = x ^ kd1 ^ (kd1 >> 16), since (x >> 16) >> 16 = 0; so
+//     kd1 enters as k1 = kd1 ^ (kd1 >> 16) in one XOR.  4 shifts, 5 XORs
+//     (one of 3 inputs), 4 multiplies and the counter's add.  A word's 8
+//     counters ctr0 .. ctr0 + 7 start at a multiple of 8 wherever the counter
+//     origin is one (rows and words step by 8): then ctr0 + e = ctr0 ^ e and
+//     the high halves agree, so the first step is ctr0's, XORed with e.
 //   * compare.  The row's threshold t in [0, 256] is kept as two bytes: bit 7
 //     of `hi` (t >= 128) and `lo` = t - 128 * hi in [0, 128], so 256 needs no
 //     flag.  (a | 0x80) - lo per byte never borrows, and one logic expression
 //     gives a < t for all four bytes at bit 7 of each byte (sne_below).
 //   * pack.  One multiply moves the 4 result bits to bits 28..31, and a funnel
-//     shift appends them to the word, last entropy word first.
+//     shift appends them to the word, last entropy word first.  bayes_decide
+//     counts without packing: it ANDs each entropy word's compare over the
+//     modalities, bit 7 of each byte only, and popcounts the 8 results.
 //
 // Levels 0 and 256 need no entropy: their words are all zero and all one
 // (sne_constant), and a bayes_decide stream with a modality at 0 counts 0
@@ -43,23 +51,40 @@ constexpr uint32_t SNE_MSB = 0x80808080u;
 // The seed words as the hash reads them.
 struct SneKey {
   uint32_t k0;    // kd0 ^ (kd0 >> 16)
-  uint32_t kd1;
+  uint32_t k1;    // kd1 ^ (kd1 >> 16)
 };
 
-SNE_HD SneKey sne_key(uint32_t kd0, uint32_t kd1) { return {kd0 ^ (kd0 >> 16), kd1}; }
+SNE_HD SneKey sne_key(uint32_t kd0, uint32_t kd1) {
+  return {kd0 ^ (kd0 >> 16), kd1 ^ (kd1 >> 16)};
+}
 
-// lowbias32(lowbias32(c ^ kd0) ^ kd1).
-SNE_HD uint32_t sne_hash(uint32_t c, SneKey key) {
-  uint32_t x = c ^ (c >> 16) ^ key.k0;
+// lowbias32(lowbias32(c ^ kd0) ^ kd1) of counter c after its first step, given
+// x = c ^ (c >> 16) ^ k0.
+SNE_HD uint32_t sne_hash_rest(uint32_t x, SneKey key) {
   x *= 0x7FEB352Du;
   x ^= x >> 15;
   x *= 0x846CA68Bu;
-  x ^= (x >> 16) ^ key.kd1;    // the first round's last step, and the second key
-  x ^= x >> 16;
+  x ^= key.k1;    // the first round's last shift-XOR and the second's first, with kd1
   x *= 0x7FEB352Du;
   x ^= x >> 15;
   x *= 0x846CA68Bu;
   return x ^ (x >> 16);
+}
+
+// The hash's first step for counters ctr0 + e, e = 0 .. 7, into x.  Where ctr0
+// is a multiple of 8, ctr0 + e = ctr0 ^ e and (ctr0 + e) >> 16 = ctr0 >> 16.
+SNE_HD void sne_first_steps(uint32_t ctr0, SneKey key, uint32_t x[8]) {
+  if ((ctr0 & 7u) == 0u) {
+    const uint32_t base = ctr0 ^ (ctr0 >> 16) ^ key.k0;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = base ^ (uint32_t)e;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const uint32_t c = ctr0 + (uint32_t)e;
+      x[e] = c ^ (c >> 16) ^ key.k0;
+    }
+  }
 }
 
 // A threshold in [0, 256] as two bytes in every byte lane: 0x80 if it is >= 128,
@@ -86,12 +111,16 @@ SNE_HD SneThr sne_threshold_of_level(uint32_t t) {
 
 SNE_HD SneThr sne_threshold(float p) { return sne_threshold_of_level(sne_level(p)); }
 
-// Bit 7 of byte b: byte b of a < t.  (a | 0x80) - lo never borrows, and its
-// bit 7 says a mod 128 >= lo; bit 7 of a and of hi decide where they differ.
-SNE_HD uint32_t sne_below(uint32_t a, SneThr t) {
+// Bit 7 of byte b: byte b of a < t; the other bits arbitrary.  (a | 0x80) - lo
+// never borrows, and bit 7 of s says a mod 128 >= lo; where hi's bit 7 is set
+// (t >= 128), a < t is ~(a & s) there, else ~(a | s): one logic expression.
+SNE_HD uint32_t sne_below_any(uint32_t a, SneThr t) {
   const uint32_t s = (a | SNE_MSB) - t.lo;
-  return ((~a & t.hi) | (~(a ^ t.hi) & ~s)) & SNE_MSB;
+  return ~((a & s) | (~t.hi & (a ^ s)));
 }
+
+// sne_below_any with the other bits 0.
+SNE_HD uint32_t sne_below(uint32_t a, SneThr t) { return sne_below_any(a, t) & SNE_MSB; }
 
 // (word << 4) with the 4 result bits of sne_below (bits 7, 15, 23, 31) as its
 // low nibble.  The multiply moves byte b's bit to bit 28 + b; no two partial
@@ -113,9 +142,11 @@ SNE_HD uint32_t sne_first_counter(unsigned long long row, unsigned long long n_r
 
 // One packed stream word: entropy words ctr0 .. ctr0 + 7 against the threshold.
 SNE_HD uint32_t sne_word(uint32_t ctr0, SneThr t, SneKey key) {
+  uint32_t x[8];
+  sne_first_steps(ctr0, key, x);
   uint32_t word = 0u;
 #pragma unroll
-  for (int e = 7; e >= 0; --e) word = sne_push(word, sne_below(sne_hash(ctr0 + (uint32_t)e, key), t));
+  for (int e = 7; e >= 0; --e) word = sne_push(word, sne_below(sne_hash_rest(x[e], key), t));
   return word;
 }
 
@@ -145,21 +176,30 @@ SNE_HD int sne_stream_kind(const float* p, unsigned long long p_stride, int n_mo
 // bayes_decide's work for one thread: the popcount, over its words w = w0,
 // w0 + dw, .. < n_out, of the AND over the n_mod modalities of stream (m, row).
 // Modality m reads its probability at p[m * p_stride] and draws the counters of
-// row `row + m * plane`; one at level 256 (all ones) is not hashed.
+// row `row + m * plane`; one at level 256 (all ones) is not hashed.  The words
+// are not packed: each entropy word's compare bits are ANDed over the
+// modalities in place (bit 7 of each byte) and popcounted, the same positions.
 SNE_HD int sne_stream_count(const float* p, unsigned long long p_stride, int n_mod,
                             unsigned long long row, unsigned long long plane, int n_out,
                             int w0, int dw, SneKey key, uint32_t offset) {
   const unsigned long long n_rand = 8ull * (unsigned long long)n_out;
   int cnt = 0;
   for (int w = w0; w < n_out; w += dw) {
-    uint32_t joint = 0xFFFFFFFFu;
+    uint32_t joint[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) joint[e] = SNE_MSB;
     for (int m = 0; m < n_mod; ++m) {
       const float pm = p[(unsigned long long)m * p_stride];
       if (sne_level(pm) == 256u) continue;
-      const unsigned long long rm = row + (unsigned long long)m * plane;
-      joint &= sne_word(sne_first_counter(rm, n_rand, w, offset), sne_threshold(pm), key);
+      const SneThr t = sne_threshold(pm);
+      uint32_t x[8];
+      sne_first_steps(sne_first_counter(row + (unsigned long long)m * plane, n_rand, w, offset),
+                      key, x);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) joint[e] &= sne_below_any(sne_hash_rest(x[e], key), t);
     }
-    cnt += sne_popc(joint);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) cnt += sne_popc(joint[e]);
   }
   return cnt;
 }

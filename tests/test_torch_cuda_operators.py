@@ -163,6 +163,74 @@ def test_bayes_decide_counts_the_streams_it_queues(fill, blocks, cuda_device, mo
     assert tr.totals() == {"bayes_decide.queued": want, "bayes_decide.streams": r * k}
 
 
+def _mix_probs(mix, seed, m, r, k):
+    """(M, R, K) posteriors whose streams the kernel queues for hashing at
+    about 0 % ("none": every level 0 or 256), 14 % ("day": softmax of
+    N(0, 6^2) logits, the other modalities N(0, 3^2)), 53 % ("night":
+    N(0, 1.5^2), then N(0, 3^2)) or 100 % ("all": every level in 3 .. 253).
+    Day and night also hold the levels' edges: p at and beside 1/512 and
+    511/512, 0, -0, 1, +-inf."""
+    g = np.random.default_rng(seed)
+    if mix == "none":
+        return g.integers(0, 2, (m, r, k)).astype(np.float32)
+    if mix == "all":
+        return g.uniform(0.01, 0.99, (m, r, k)).astype(np.float32)
+    scales = [(6.0 if mix == "day" else 1.5) if i == 0 else 3.0 for i in range(m)]
+    logits = np.stack([s * g.standard_normal((r, k)) for s in scales])
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    p = (p / p.sum(-1, keepdims=True)).astype(np.float32)
+    lo, hi = np.float32(1 / 512), np.float32(511 / 512)
+    edges = np.array([lo, np.nextafter(lo, np.float32(1)), np.nextafter(lo, np.float32(0)),
+                      hi, np.nextafter(hi, np.float32(0)), np.nextafter(hi, np.float32(2)),
+                      0.0, -0.0, 1.0, np.inf, -np.inf], np.float32)
+    flat = p.reshape(m, -1)
+    flat[:, :edges.size * 3] = np.resize(edges, edges.size * 3)[None, :]
+    flat[1:, :edges.size * 3] = np.roll(flat[1:, :edges.size * 3], 1, axis=-1)
+    return p
+
+
+# (mix, M, R, K, n_bits) on the queued path (a card of 256 threads: chunk 8):
+# the four queued shares at the paper's M = 2, K = 16; tiles of ragged rows
+# (K = 3: 341 rows a tile, K = 19: 53); 32 and 256 bits; M = 1 and 3.  No R
+# is a multiple of its tile, so the last tile is ragged.
+_QUEUED = [("none", 2, 3001, 16, 128), ("day", 2, 3001, 16, 128),
+           ("night", 2, 3001, 16, 128), ("all", 2, 3001, 16, 128),
+           ("night", 3, 3001, 3, 32), ("day", 1, 3001, 19, 256),
+           ("all", 1, 2999, 3, 256), ("night", 3, 1000, 19, 32)]
+_SHARES = {"none": (0.0, 0.0), "day": (0.10, 0.20), "night": (0.45, 0.60), "all": (1.0, 1.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [None, 3, 1], ids=["grid", "three-blocks", "one-block"])
+@pytest.mark.parametrize("case", _QUEUED, ids=[f"{c[0]}-M{c[1]}-R{c[2]}-K{c[3]}-{c[4]}b"
+                                               for c in _QUEUED])
+def test_bayes_decide_queued_path_equals_plain(case, blocks, cuda_device, monkeypatch):
+    # pass 1 classifies a window's streams by comparing p with the levels'
+    # edges, its loads in flight together; pass 2 hashes the queue.  On the
+    # card's grid a block takes a tile, on three blocks and on one the tile
+    # loop walks the rest.  Counts and decisions are the plain version's, and
+    # the queued count is the thresholds rule's
+    mix, m, r, k, n_bits = case
+    monkeypatch.setattr(backend, "fill_threads", lambda index: 256)
+    if blocks is not None:
+        monkeypatch.setattr(BK, "MAX_BLOCKS", blocks)
+    _, chunk, rows_per_tile = BK.launch_split(r, k, n_bits // 32, 256)
+    assert chunk > 1 and r % rows_per_tile
+    p = torch.from_numpy(_mix_probs(mix, r + k + m, m, r, k))
+    want_q = int(bd_ops.queued_streams(p))
+    lo, hi = _SHARES[mix]
+    if (m, k) == (2, 16):
+        assert lo <= want_q / (r * k) <= hi
+    kd0, kd1 = (int(v) for v in KD)
+    queued = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    dec, cnt = BK.bayes_decide_cuda(kd0, kd1, p.to(cuda_device), n_bits=n_bits, offset=WRAP,
+                                    queued=queued)
+    rand = rng.counter_hash_words(KD, (m, r, k), n_bits // 4, offset=WRAP)
+    want_dec, want_cnt = bayes_decide_ref(p, rand)
+    assert torch.equal(cnt.cpu(), want_cnt) and torch.equal(dec.cpu(), want_dec)
+    assert int(queued) == want_q
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", _CASES[:3], ids=_IDS[:3])
 def test_entry_points_launch_the_kernels(case, cuda_device):

@@ -303,10 +303,35 @@ def test_host_decide_counts_constant_streams_without_a_hash(tmp_path_factory):
     assert int(counts[2, 0]) == int(counts[2, 2]) == n_bits and int(dec[2]) == 0
 
 
+@pytest.mark.parametrize("residue", range(8))
+def test_host_every_counter_origin_mod_8(residue, tmp_path_factory):
+    """The hash's first step takes ctr0 ^ e for a word's 8 counters where they
+    start at a multiple of 8, and the whole step elsewhere: at every residue of
+    the counter origin mod 8, with counters that cross a multiple of 65536 and
+    wrap 2**32, the words and counts are the plain versions'."""
+    lib = _host_library(tmp_path_factory)
+    kd = np.array([0x9E3779B9, 0x7F4A7C15], np.uint32)
+    n_bits, m, rows, k = 128, 2, 12, 3
+    n_rand = n_bits // 4
+    for offset in (65536 - 200 + residue, 2**32 - 300 + residue):
+        p = _probs(residue, (m * rows * k,))
+        words = _encode(lib, p, n_bits, kd, 0, offset)
+        rand = rng.counter_hash_words(kd, (m * rows * k,), n_rand, offset=offset)
+        np.testing.assert_array_equal(words, _u32(sne_encode_ref(torch.from_numpy(p), rand)))
+        p3 = p.reshape(m, rows, k)
+        want_dec, want_cnt = bayes_decide_ref(torch.from_numpy(p3), rand.view(m, rows, k, -1))
+        for split in (1, 2, 4):
+            dec, counts = _decide(lib, p3, n_bits, kd, split, offset=offset)
+            np.testing.assert_array_equal(counts, want_cnt.numpy())
+            np.testing.assert_array_equal(dec, want_dec.numpy())
+
+
 @pytest.mark.parametrize("rows,k,n_out,split,chunk,rows_per_tile", [
     (4096, 2, 4, 4, 1, 16),         # bench_latency's decision: 256 blocks of 128
     (16_588_800, 16, 4, 1, 8, 64),  # the full paper-bayes-fusion batch: 8 streams a thread
     (64, 8, 8, 8, 1, 2),            # a bayes_head batch: 64 tokens, top 8 classes, 256 bits
+    (4, 8, 8, 8, 1, 2),             # the LM gate: B = 4, top 8 classes, 256 bits
+    (2, 8, 8, 8, 1, 2),             # deepseek's MTP fusion: B = 2, top 8 classes, 256 bits
     (1, 1, 128, 32, 1, 4),          # one stream of 4096 bits: a warp shares it
     (100, 33, 4, 4, 1, 1),          # more threads per row than a block has
     (10_000, 200, 3, 1, 7, 4),      # three words, many classes
